@@ -1,0 +1,52 @@
+"""Import hygiene of the PyTorch port: ``repro_torch``, ``benchmarks_torch``
+and ``chip_smoke.py`` import neither JAX nor anything of the JAX package
+``repro``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SOURCES = (sorted(PORT.rglob("*.py")) + sorted((REPO / "benchmarks_torch").glob("*.py"))
+           + [REPO / "chip_smoke.py"])
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax_or_repro(path):
+    for name in _imported(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for mod in {modules!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "assert not any(k == 'repro' or k.startswith(('repro.', 'jax'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
