@@ -4,30 +4,44 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds the port's CUDA kernels from the
-sources there (``nvcc``, into ``build/repro_torch/``), then
+sources there (``nvcc``, one process per source, all started together, into
+``build/repro_torch/``), then
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-     versions and the build time;
-  2. holds every kernel against its plain PyTorch version on the card
-     (rtol = atol = 1e-5) over a sweep of shapes, dtypes and modes, a 1e30
-     outlier row and a NaN column;
+     versions, the build time and every kernel instance's registers and
+     spills;
+  2. holds every kernel against its plain PyTorch version on the card over a
+     sweep of shapes, dtypes and modes, a 1e30 outlier row and a NaN entry:
+     ``cw_reduce``, ``weighted_combine`` and ``combine_reduce`` at
+     rtol = atol = 1e-5, ``pairwise_sqdist`` and ``cross_sqdist`` at atol
+     2e-6 after dividing by the larger of the largest distance and the
+     largest squared row norm;
   3. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
      setting (m=17, 8 Byzantine, sign_flip under Periodic(10), CWTM at trim
      8, T=150, sgd(0.1), the 64-128-10 Gaussian-mixture MLP at full width)
      through ``make_task`` / ``run_dynabro`` with the default backend, and
      checks the test accuracy, the kernel's launch count, and a second run on
      the plain backend;
-  4. times each kernel at the main path's shapes beside its plain version,
+  4. trains the same setting with each geometry rule: NNM+CWTM, MFM
+     (Option 2, adagrad_norm(0.5)), Krum and GeoMed (8 Weiszfeld steps), on
+     the default backend and on the plain one, and checks every kernel's
+     launch count, the round logs and params against the plain backend, and
+     that no discrete choice of the rule (Krum's pick, NNM's neighbours,
+     MFM's filter) differs between the two;
+  5. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound;
-  5. prints the ``{"kernels": [...]}`` summary, then
+  6. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
 and the exit code is non-zero; so is it without a CUDA card.
 """
+import contextlib
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -39,9 +53,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import (  # noqa: E402
-    LAUNCHES, DynaBROConfig, MLMCConfig, get_switcher, make_task, run_dynabro,
-    sgd,
+    LAUNCHES, DynaBROConfig, MLMCConfig, adagrad_norm, get_switcher,
+    make_task, run_dynabro, sgd,
 )
+from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -53,9 +68,16 @@ F32_OPS_PER_S = 67e12
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 M, N_BYZ, T, TRIM = 17, 8, 150, 8
+DELTA = N_BYZ / M + 1e-3
 LEAF_SHAPES = [(M, 8192), (M, 1280), (M, 128), (M, 10)]  # w1, w2, b1, b2
 CHECK_M = (3, 8, 16, 17, 25, 32, 64)
 CHECK_D = (10, 50, 777, 2048, 8192, 9610)
+GEO_CHECK_M = (1, 2, 3, 17, 32, 64)
+GEO_CHECK_D = (10, 777, 8192, 9610)
+DIST_ATOL = 2e-6  # of max(largest distance, largest squared row norm)
+LIBRARIES = ("cw_reduce", "sqdist", "combine")
+KERNELS = ("cw_reduce", "pairwise_sqdist", "cross_sqdist", "weighted_combine",
+           "combine_reduce")
 
 
 def emit(obj):
@@ -125,6 +147,105 @@ def check_kernels(dev):
     return worst, n
 
 
+def check_dist(got, want, what, *rows):
+    """Squared distances: equal where not finite; elsewhere within
+    DIST_ATOL after dividing both by the larger of the largest distance and
+    the largest squared row norm (the Gram expansion cancels relative to the
+    row norms). Returns that scaled error."""
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite), f"{what}: inf/NaN differ"
+    torch.testing.assert_close(got[~finite], want[~finite], equal_nan=True,
+                               rtol=0, atol=0, msg=lambda s: f"{what}: {s}")
+    norms = torch.cat([r.float().square().sum(1) for r in rows])
+    norms = norms[torch.isfinite(norms)]
+    scale = max(float(want[finite].max()) if bool(finite.any()) else 0.0,
+                float(norms.max()) if norms.numel() else 0.0, 1e-30)
+    err = (float((got[finite] - want[finite]).abs().max()) / scale
+           if bool(finite.any()) else 0.0)
+    assert err <= DIST_ATOL, f"{what}: scaled error {err} > {DIST_ATOL}"
+    return err
+
+
+def check_geometry_kernels(dev):
+    """pairwise_sqdist, cross_sqdist, weighted_combine and combine_reduce
+    (and fused_pass over them) against kref on the card. Returns the largest
+    error per kernel (scaled for the distances, absolute for the combines)
+    and the number of comparisons."""
+    gen = torch.Generator().manual_seed(2)
+    worst = dict.fromkeys(KERNELS[1:], 0.0)
+    n = 0
+
+    def note(name, err):
+        nonlocal n
+        worst[name] = max(worst[name], err)
+        n += 1
+
+    for m in GEO_CHECK_M:
+        for d in GEO_CHECK_D:
+            x32 = torch.randn(m, d, generator=gen) * 3.0
+            y32 = torch.randn(2, d, generator=gen) * 3.0
+            ws = [torch.rand(1, m, generator=gen), torch.rand(m, m, generator=gen)]
+            for dtype in (torch.float32, torch.bfloat16):
+                x, y = x32.to(dtype).to(dev), y32.to(dtype).to(dev)
+                tag = f"m={m} d={d} {dtype}"
+                pw = fused.pairwise_sqdist(x)
+                assert torch.equal(pw, pw.T), f"pairwise not symmetric {tag}"
+                assert torch.equal(pw, fused.pairwise_sqdist(x)), f"rerun {tag}"
+                note("pairwise_sqdist", check_dist(
+                    pw, kref.pairwise_sqdist_ref(x), f"pairwise {tag}", x))
+                for k in (1, 2):
+                    note("cross_sqdist", check_dist(
+                        fused.cross_sqdist(x, y[:k]),
+                        kref.cross_sqdist_ref(x, y[:k]), f"cross k={k} {tag}",
+                        x, y))
+                for w in ws:
+                    wd, k = w.to(dev), w.shape[0]
+                    mixed = kref.weighted_combine_ref(x, wd)
+                    note("weighted_combine", check(
+                        fused.weighted_combine(x, wd), mixed,
+                        f"combine k={k} {tag}"))
+                    for mode in fused.REDUCE_MODES:
+                        trims = sorted({0, 2, 5, (k - 1) // 2}) if mode == "tm" else [0]
+                        for trim in trims:
+                            trim = min(trim, (k - 1) // 2)
+                            note("combine_reduce", check(
+                                fused.combine_reduce(x, wd, mode, trim),
+                                kref.combine_reduce_ref(x, wd, mode, trim),
+                                f"combine_reduce {mode} trim={trim} k={k} {tag}"))
+                    both = fused.fused_pass(x, w=wd, reduce="tm", trim=TRIM,
+                                            combine=True)
+                    note("combine_reduce", check(
+                        both["reduce"], kref.combine_reduce_ref(
+                            x, wd, "tm", min(TRIM, (k - 1) // 2)),
+                        f"fused reduce+combine k={k} {tag}"))
+                    note("combine_reduce", check(both["combine"], mixed,
+                                                 f"fused combine k={k} {tag}"))
+    # edge inputs: a 1e30 row, and a NaN that must reach every output it
+    # touches (distances of its row, its column of every combine)
+    x = (torch.randn(M, 9610, generator=gen) * 3.0).to(dev)
+    x[0] = 1e30
+    x[5, 3] = float("nan")
+    z = x[1:2].clone()
+    w = (torch.rand(M, M, generator=gen) / M).to(dev)
+    note("pairwise_sqdist", check_dist(fused.pairwise_sqdist(x),
+                                       kref.pairwise_sqdist_ref(x),
+                                       "pairwise 1e30/NaN", x))
+    note("cross_sqdist", check_dist(fused.cross_sqdist(x, z),
+                                    kref.cross_sqdist_ref(x, z),
+                                    "cross 1e30/NaN", x, z))
+    got = fused.weighted_combine(x, w)
+    assert bool(torch.isnan(got[:, 3]).all()), "combine: NaN column not NaN"
+    check(got, kref.weighted_combine_ref(x, w), "combine 1e30/NaN")
+    for mode in fused.REDUCE_MODES:
+        got = fused.combine_reduce(x, w, mode, TRIM)
+        assert bool(torch.isnan(got[3])), f"combine_reduce {mode}: NaN column"
+        check(got, kref.combine_reduce_ref(x, w, mode, TRIM),
+              f"combine_reduce {mode} 1e30/NaN")
+    n += 4
+    torch.cuda.synchronize()
+    return worst, n
+
+
 # ------------------------------------------------------------- 3. main path
 
 
@@ -183,7 +304,160 @@ def main_path(dev):
     return launches
 
 
-# ------------------------------------------------------------- 4. timing
+# ------------------------------------------------------ 4. geometry paths
+
+# rule: (MLMC option, optimizer, launches of each kernel per aggregation and
+# parameter leaf)
+GEOMETRY_PATHS = {
+    "nnm+cwtm": (1, lambda: sgd(0.1), {"pairwise_sqdist": 1, "combine_reduce": 1}),
+    "mfm": (2, lambda: adagrad_norm(0.5),
+            {"pairwise_sqdist": 1, "weighted_combine": 1}),
+    "krum": (1, lambda: sgd(0.1), {"pairwise_sqdist": 1, "weighted_combine": 1}),
+    "geomed": (1, lambda: sgd(0.1), {"weighted_combine": 9, "cross_sqdist": 8}),
+}
+# what the level draws of seed 0 give: 145 in-cap rounds of 3 aggregations
+# and 5 beyond the cap of 1, 440 aggregations of 4 leaves
+EXPECTED_LAUNCHES = {
+    "nnm+cwtm": {"pairwise_sqdist": 1760, "combine_reduce": 1760},
+    "mfm": {"pairwise_sqdist": 1760, "weighted_combine": 1760},
+    "krum": {"pairwise_sqdist": 1760, "weighted_combine": 1760},
+    "geomed": {"weighted_combine": 15840, "cross_sqdist": 14080},
+}
+# the weight core of each rule that makes a discrete choice
+DECISION_CORES = {"nnm+cwtm": "_nnm_weights", "mfm": "_mfm_weights",
+                  "krum": "_krum_weights"}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def record_decisions(core):
+    """Keep (d2, arguments, weights) of every call of ``aggregators.<core>``
+    while the block runs."""
+    calls, orig = [], getattr(aggregators, core)
+
+    def recorded(d2, *args):
+        w = orig(d2, *args)
+        calls.append((d2.clone(), args, w.clone()))
+        return w
+
+    setattr(aggregators, core, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(aggregators, core, orig)
+
+
+def decision_margin(rule, d2, args):
+    """How near one aggregation's choice is to flipping, relative: Krum's
+    gap between the last picked and the first passed-over score, NNM's
+    smallest gap between a row's last kept and first dropped neighbour, and
+    MFM's smallest distance to either threshold (tau/2, tau), over tau."""
+    if rule == "krum":
+        k, multi = args
+        s = torch.sort(aggregators._krum_scores(d2, k)).values
+        return float((s[multi] - s[multi - 1]) / s[multi])
+    if rule == "nnm+cwtm":
+        (k,) = args
+        srt = torch.sort(d2, dim=1).values
+        return float(((srt[:, k] - srt[:, k - 1]) / srt[:, k]).min())
+    (tau,) = args
+    d = torch.sqrt(d2)
+    return float(torch.minimum((d - tau / 2).abs(), (d - tau).abs()).min() / tau)
+
+
+def round_of_call(logs, call, j_max):
+    """The round of the ``call``-th aggregation of a run (3 a round in the
+    cap, 1 beyond it)."""
+    seen = 0
+    for t, log in enumerate(logs):
+        seen += 3 if 1 <= log.level <= j_max else 1
+        if call < seen:
+            return t
+    return None
+
+
+def geometry_path(task, rule):
+    """Train the Figure-1 setting with ``rule`` on the default backend (the
+    kernels) and the plain one, and check them against each other."""
+    params0, grad_fn, sampler, eval_fn = task
+    option, make_opt, per_agg = GEOMETRY_PATHS[rule]
+    cfg = DynaBROConfig(
+        mlmc=MLMCConfig(T=T, m=M, V=5.0, option=option, kappa=1.0, j_cap=5),
+        aggregator=rule, delta=DELTA, attack="sign_flip")
+
+    def run(backend):
+        sw = get_switcher("periodic", M, n_byz=N_BYZ, K=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_dynabro(grad_fn, params0, make_opt(),
+                          dataclasses.replace(cfg, agg_backend=backend), sw,
+                          sampler, T, seed=0, eval_fn=eval_fn, eval_every=30)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_launches()
+    (params, logs, evals), secs = run("auto")  # this path: the kernels
+    launches = dict(LAUNCHES)
+    reset_launches()
+    (ref_params, ref_logs, ref_evals), ref_secs = run("ref")
+    ref_launches = dict(LAUNCHES)
+
+    j_max = cfg.mlmc.j_max
+    aggs = sum(3 if 1 <= l.level <= j_max else 1 for l in logs)
+    expected = {k: aggs * len(params0) * per_agg.get(k, 0) for k in KERNELS}
+    diff = max(float((params[k] - ref_params[k]).abs().max()) for k in params)
+    row = {"phase": "geometry_path", "rule": rule, "option": option,
+           "optimizer": "adagrad_norm(0.5)" if option == 2 else "sgd(0.1)",
+           "T": T, "m": M, "n_byz": N_BYZ, "aggregations": aggs,
+           "failsafe_ok": sum(l.failsafe_ok for l in logs),
+           "evals": [[t, e["test_acc"]] for t, e in evals],
+           "ref_evals": [[t, e["test_acc"]] for t, e in ref_evals],
+           "test_acc": evals[-1][1]["test_acc"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "expected_launches": {k: v for k, v in expected.items() if v},
+           "ref_launches": sum(ref_launches.values()),
+           "logs_equal_ref": [vars(l) for l in logs] == [vars(l) for l in ref_logs],
+           "max_param_diff_vs_ref": diff,
+           "seconds": secs, "rounds_per_s": T / secs,
+           "ref_seconds": ref_secs, "ref_rounds_per_s": T / ref_secs}
+    flip = None
+    if rule in DECISION_CORES:  # replay both with each choice recorded
+        with record_decisions(DECISION_CORES[rule]) as kcalls:
+            run("auto")
+        with record_decisions(DECISION_CORES[rule]) as rcalls:
+            run("ref")
+        margins = [decision_margin(rule, d2, args) for d2, args, _ in kcalls]
+        c = min(range(len(margins)), key=margins.__getitem__)
+        row.update(decisions=len(kcalls), min_margin=margins[c],
+                   min_margin_round=round_of_call(logs, c, j_max))
+        flip = next((i for i, (a, b) in enumerate(zip(kcalls, rcalls))
+                     if not torch.equal(a[2], b[2])), None)
+        if flip is None and len(kcalls) != len(rcalls):
+            flip = min(len(kcalls), len(rcalls))
+        row["first_flip"] = None if flip is None else {
+            "call": flip, "round": round_of_call(logs, flip, j_max),
+            "margin": margins[flip] if flip < len(margins) else None}
+    emit(row)
+
+    assert flip is None, f"{rule}: a choice differs from the plain backend's: {row['first_flip']}"
+    assert row["logs_equal_ref"], f"{rule}: round logs differ from the plain backend's"
+    assert diff <= 1e-5, f"{rule}: kernel vs plain params differ by {diff}"
+    for k in params:
+        assert params[k].shape == params0[k].shape, k
+        assert bool(torch.isfinite(params[k]).all()), f"{rule}: non-finite {k}"
+    assert launches == expected, (rule, launches, expected)
+    assert row["expected_launches"] == EXPECTED_LAUNCHES[rule], row["expected_launches"]
+    assert row["ref_launches"] == 0, ref_launches
+    if rule == "nnm+cwtm":
+        assert row["test_acc"] > 0.8, f"{rule}: final test_acc {row['test_acc']} <= 0.8"
+    return launches
+
+
+# ------------------------------------------------------------- 5. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -223,15 +497,24 @@ def time_graph_us(fn, iters=200):
     return a.elapsed_time(b) * 1e3 / iters
 
 
-def bound_us(m, d, itemsize):
-    """Least time for one call: the larger of its bytes over the HBM rate
-    and its float32 operations over the f32 rate."""
-    np2 = 1 << (m - 1).bit_length()
-    log2 = np2.bit_length() - 1
-    ops = d * (np2 * log2 * (log2 + 1) // 2 + m)  # min+max per comparator, sum
-    nbytes = m * d * itemsize + 4 * d
+def bound_from(nbytes, ops):
+    """Least time for one call, in µs: the larger of its bytes (each input
+    read once, each output written once) over the HBM rate and its float32
+    operations over the f32 rate, and which of the two it is."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sort_ops(k):
+    """min+max operations of the bitonic network over next_pow2(k) rows."""
+    np2 = 1 << (k - 1).bit_length()
+    log2 = np2.bit_length() - 1
+    return np2 * log2 * (log2 + 1) // 2
+
+
+def bound_us(m, d, itemsize):
+    """``cw_reduce`` of an (m, d) stack: the sort network and the sum."""
+    return bound_from(m * d * itemsize + 4 * d, d * (sort_ops(m) + m))
 
 
 def timing(dev):
@@ -277,6 +560,105 @@ def timing(dev):
     return rows
 
 
+def geometry_timing(dev):
+    """pairwise_sqdist, cross_sqdist (k=1), weighted_combine (k=1 and k=m)
+    and combine_reduce (NNM's mixing, trim 8) at the main path's shapes,
+    float32, beside their plain versions and a library call where one
+    computes the same function; fields as in ``timing``."""
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for m, d in LEAF_SHAPES + [(M, 9610)]:
+        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dev)
+        z = (torch.randn(1, d, generator=gen) * 1e-2).to(dev)
+        w1 = torch.full((1, m), 1.0 / m, device=dev)  # GeoMed's first combine
+        k_nn = m - aggregators.count_ceil(DELTA * m)
+        wm = aggregators._nnm_weights(kref.pairwise_sqdist_ref(x), k_nn)
+        # name, case: (kernel, plain, library, bytes, f32 operations)
+        cases = {
+            ("pairwise_sqdist", "k=m"): (
+                lambda: fused.pairwise_sqdist(x),
+                lambda: kref.pairwise_sqdist_ref(x),
+                lambda: torch.cdist(x, x).square_(),
+                4 * (m * d + m * m), m * (m + 1) * d),  # 2 per pair i <= j
+            ("cross_sqdist", "k=1"): (
+                lambda: fused.cross_sqdist(x, z),
+                lambda: kref.cross_sqdist_ref(x, z),
+                lambda: torch.cdist(x, z).square_(),
+                4 * ((m + 1) * d + m), 3 * m * d),
+            ("weighted_combine", "k=1"): (
+                lambda: fused.weighted_combine(x, w1),
+                lambda: kref.weighted_combine_ref(x, w1),
+                lambda: torch.mm(w1, x),
+                4 * (m * d + m + d), 2 * m * d),
+            ("weighted_combine", "k=m"): (
+                lambda: fused.weighted_combine(x, wm),
+                lambda: kref.weighted_combine_ref(x, wm),
+                lambda: torch.mm(wm, x),
+                4 * (2 * m * d + m * m), 2 * m * m * d),
+            ("combine_reduce", "k=m tm"): (
+                lambda: fused.combine_reduce(x, wm, "tm", TRIM),
+                lambda: kref.combine_reduce_ref(x, wm, "tm", TRIM),
+                None,  # no single PyTorch call mixes and trims
+                4 * (m * d + m * m + d), d * (2 * m * m + sort_ops(m) + m)),
+        }
+        for (name, case), (kern, plain, library, nbytes, ops) in cases.items():
+            b_us, b_by = bound_from(nbytes, ops)
+            got, want = kern(), plain()
+            row = {"phase": "timing", "kernel": name, "case": case, "m": m,
+                   "d": d, "dtype": "float32",
+                   "max_abs_err": max_abs_err(got, want),
+                   "kernel_us": time_graph_us(kern),
+                   "kernel_call_us": time_calls_us(kern),
+                   "plain_us": time_graph_us(plain),
+                   "plain_call_us": time_calls_us(plain),
+                   "library_us": time_graph_us(library) if library else None,
+                   "library_call_us": time_calls_us(library) if library else None,
+                   "bound_us": b_us, "bound_by": b_by}
+            emit(row)
+            rows[(name, case, m, d)] = row
+    return rows
+
+
+def ptxas_report(name):
+    """Registers, stack and spill bytes of every kernel instance in the
+    compiler's report of library ``name``, names demangled where c++filt
+    is there."""
+    entries, cur, frame = [], None, None
+    for ln in kbuild.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif "bytes stack frame" in ln:
+            frame = [int(v) for v in re.findall(r"(\d+) bytes", ln)]
+        elif "registers" in ln and cur is not None:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            entries.append([cur, regs] + (frame or [0, 0, 0]))
+            cur, frame = None, None
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and entries:
+        out = subprocess.run([cxxfilt], input="\n".join(e[0] for e in entries),
+                             capture_output=True, text=True, timeout=60).stdout
+        for e, demangled in zip(entries, out.splitlines()):
+            e[0] = re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", demangled)
+    return {"library": name, "instances": len(entries),
+            "fields": ["kernel", "registers", "stack_bytes", "spill_stores",
+                       "spill_loads"], "entries": entries}
+
+
+def kernel_entry(name, source, replaces, launches, by_path, err, row, lib_row,
+                 library, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": row["kernel_us"] / 1e3, "call_ms": row["kernel_call_us"] / 1e3,
+            "plain_ms": row["plain_us"] / 1e3,
+            "plain_call_ms": row["plain_call_us"] / 1e3,
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+            "library_ms": None if lib_row is None else lib_row["library_us"] / 1e3,
+            "library_call_ms": (None if lib_row is None
+                                else lib_row["library_call_us"] / 1e3),
+            "library": library, **extra}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -289,41 +671,70 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    build_s = kbuild.build(["cw_reduce"])
-    ptxas = [ln.strip() for ln in kbuild.build_log("cw_reduce").splitlines()
-             if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    build_s = kbuild.build(LIBRARIES)  # one nvcc per source, in parallel
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "build_seconds": build_s, "ptxas": ptxas})
+          "build_seconds": build_s})
+    for name in LIBRARIES:
+        emit({"phase": "ptxas", **ptxas_report(name)})
 
     worst, n_checks = check_kernels(dev)
     emit({"phase": "kernel_check", "kernel": "cw_reduce", "comparisons": n_checks,
           "max_abs_err": worst, "rtol": TOL["rtol"], "atol": TOL["atol"]})
+    geo_worst, geo_checks = check_geometry_kernels(dev)
+    emit({"phase": "kernel_check",
+          "kernel": "pairwise_sqdist, cross_sqdist, weighted_combine, "
+                    "combine_reduce", "comparisons": geo_checks,
+          "max_err": geo_worst,
+          "tolerance": {"weighted_combine, combine_reduce": TOL,
+                        "pairwise_sqdist, cross_sqdist": {
+                            "atol": DIST_ATOL, "of": "max(largest distance, "
+                                                     "largest squared row norm)"}}})
 
     launches = main_path(dev)
+    task = make_task(M, seed=0, device=dev)
+    by_path = {"cwtm": {"cw_reduce": launches}}
+    for rule in GEOMETRY_PATHS:
+        by_path[rule] = geometry_path(task, rule)
+    # every kernel ran on some path: its own count was not 0 there
+    for k in KERNELS:
+        assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"
     rows = timing(dev)
+    geo_rows = geometry_timing(dev)
+
+    def launches_of(kernel):
+        return {path: c[kernel] for path, c in by_path.items() if c.get(kernel)}
 
     main_row = rows[("tm", M, 8192)]
     med_row = rows[("med", M, 8192)]
-    emit({"kernels": [{
-        "name": "cw_reduce", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cw_reduce.cu",
-        "replaces": "src/repro/kernels/fused.py:156",
-        "launches": launches,
-        "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows.values()]),
-        "ms": main_row["kernel_us"] / 1e3,
-        "call_ms": main_row["kernel_call_us"] / 1e3,
-        "plain_ms": main_row["plain_us"] / 1e3,
-        "plain_call_ms": main_row["plain_call_us"] / 1e3,
-        "bound_ms": main_row["bound_us"] / 1e3,
-        "bound_by": main_row["bound_by"],
+    entries = [kernel_entry(
+        "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
+        "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
+        max([worst] + [r["max_abs_err"] for r in rows.values()]), main_row,
         # at trim (m-1)/2 of odd m the trimmed mean keeps only the middle
         # row, so torch.median computes the same function
-        "library_ms": med_row["library_us"] / 1e3,
-        "library_call_ms": med_row["library_call_us"] / 1e3,
-        "shape": [M, 8192], "mode": "tm", "trim": TRIM}]})
+        med_row, "torch.median(x, 0)", shape=[M, 8192], mode="tm", trim=TRIM)]
+    for name, case, replaces, path, library in [
+            ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
+             "nnm+cwtm", "torch.cdist(x, x).square_()"),
+            ("weighted_combine", "k=1", "src/repro/kernels/fused.py:273",
+             "krum", "torch.mm(w, x)"),
+            ("combine_reduce", "k=m tm", "src/repro/kernels/fused.py:143",
+             "nnm+cwtm", None),
+            ("cross_sqdist", "k=1", "src/repro/kernels/fused.py:304",
+             "geomed", "torch.cdist(x, z).square_()")]:
+        row = geo_rows[(name, case, M, 8192)]
+        source = ("src/repro_torch/kernels/csrc/sqdist.cu" if "sqdist" in name
+                  else "src/repro_torch/kernels/csrc/combine.cu")
+        err = max(r["max_abs_err"] for key, r in geo_rows.items()
+                  if key[0] == name)
+        entries.append(kernel_entry(
+            name, source, replaces, by_path[path][name], launches_of(name), err,
+            row, row if library else None, library,
+            check_max_err=geo_worst[name], shape=[M, 8192], case=case))
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

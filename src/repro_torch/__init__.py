@@ -4,10 +4,14 @@ It mirrors ``repro``'s layout and runs on an NVIDIA GPU by default; pass
 ``device="cpu"`` to run it on the CPU, where every kernel wrapper computes
 its plain PyTorch version. It imports nothing of JAX or of ``repro``.
 
-Ported so far: Algorithm 2 (MLMC + fail-safe) through the per-round driver
-with the coordinate-wise rules (Mean, CWMed, CWTM) on the CUDA kernel
-``kernels/csrc/cw_reduce.cu``, the ``none``/``sign_flip`` attacks, every
-switching strategy and every optimizer, on the Gaussian-mixture MLP task.
+Ported so far: Algorithm 2 (MLMC + fail-safe, Options 1 and 2) through the
+per-round driver with every class rule of the JAX package: the
+coordinate-wise rules (Mean, CWMed, CWTM) on the CUDA kernel
+``kernels/csrc/cw_reduce.cu``, and the geometry rules (Krum, GeoMed, MFM and
+``nnm+<base>``) on ``kernels/csrc/sqdist.cu`` (pairwise and cross squared
+distances) and ``kernels/csrc/combine.cu`` (weighted combine, mix+reduce);
+the ``none``/``sign_flip`` attacks, every switching strategy and every
+optimizer, on the Gaussian-mixture MLP task.
 """
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import (

@@ -1,21 +1,30 @@
-"""Backend-dispatching aggregation engine: the coordinate-wise part of the
-JAX package's ``core/agg_engine.py``.
+"""Backend-dispatching aggregation engine: the class-rule part of the JAX
+package's ``core/agg_engine.py``.
 
-A coordinate-wise rule reduces an (m, d) stack to (d,) per leaf. Each
-primitive has two backends: ``ref`` (plain PyTorch, ``kernels/ref.py``) and
-``kernel`` (the hand-written CUDA kernel, ``kernels/fused.py``). ``auto``
-takes the kernel for a tensor on the card and the plain version for one on
-the CPU; ``kernel`` on a CPU tensor raises. There is no size threshold yet:
-the JAX package's ``PALLAS_MIN_BYTES`` was set for a TPU and a CPU, and the
-H100's is to be set from the kernel and plain times in PERF.md.
+Every rule decomposes into three primitives over a worker stack x: (m, d):
 
-Rules stream leaf by leaf in sorted key order; none materializes the flat
-(m, d_total) matrix.
+  1. coordinate-wise reduce: (m, d) -> (d,) median / trimmed mean / mean;
+  2. pairwise-distance accumulate: per-leaf (m, m) (or (m, k) cross)
+     squared distances, summed over the leaves into the global ones;
+  3. weighted combine: (k, m) @ (m, d) -> (k, d) per leaf, and its
+     mix-then-reduce form (combine, then 1) in one pass.
+
+Each primitive has two backends: ``ref`` (plain PyTorch, ``kernels/ref.py``)
+and ``kernel`` (the hand-written CUDA kernels, ``kernels/fused.py``).
+``auto`` takes the kernel for a tensor on the card and the plain version for
+one on the CPU; ``kernel`` on a CPU tensor raises. There is no size
+threshold yet: the JAX package's ``PALLAS_MIN_BYTES`` was set for a TPU and a
+CPU, and the H100's is to be set from the kernel and plain times in PERF.md.
+
+Rules stream leaf by leaf in sorted key order (the JAX package's
+``jax.tree.leaves`` order); only the (m, m) distance statistics are global,
+and none materializes the flat (m, d_total) matrix.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -48,7 +57,7 @@ def dispatch_backend(backend: str, x: torch.Tensor) -> str:
 
 # ============================================================ primitives
 #
-# All take x: (m, d) and return (d,) float32.
+# All take x: (m, d) and return float32.
 
 
 def cw_mean(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
@@ -76,9 +85,99 @@ def cw_trimmed_mean(x: torch.Tensor, trim, *,
     return kref.cwtm_ref(x, trim)
 
 
+def pairwise_sqdist(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """(m, d) -> (m, m) squared L2 distances."""
+    if dispatch_backend(backend, x) == "kernel":
+        return kfused.pairwise_sqdist(x)
+    return kref.pairwise_sqdist_ref(x)
+
+
+def cross_sqdist(x: torch.Tensor, y: torch.Tensor, *,
+                 backend: str = "auto") -> torch.Tensor:
+    """(m, d), (k, d) -> (m, k) squared L2 distances."""
+    if dispatch_backend(backend, x) == "kernel":
+        return kfused.cross_sqdist(x, y)
+    return kref.cross_sqdist_ref(x, y)
+
+
+def weighted_combine(x: torch.Tensor, w: torch.Tensor, *,
+                     backend: str = "auto") -> torch.Tensor:
+    """(m, d) rows combined with weights w: (k, m) -> (k, d), or (m,) -> (d,)."""
+    w2 = w[None] if w.dim() == 1 else w
+    if dispatch_backend(backend, x) == "kernel":
+        out = kfused.weighted_combine(x, w2)
+    else:
+        out = kref.weighted_combine_ref(x, w2)
+    return out[0] if w.dim() == 1 else out
+
+
+def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str, trim=0, *,
+                   backend: str = "auto") -> torch.Tensor:
+    """Mix-then-reduce in one primitive: the rows of ``w @ x`` (w: (k, m))
+    reduced coordinate-wise to (d,) by ``mode`` in {"med", "tm", "mean"}, the
+    hot step of NNM with a coordinate-wise base. The kernel backend is one
+    launch that reads the stack once and never writes the mixed (k, d)
+    matrix; the ref backend runs the two steps of the separate plain
+    versions."""
+    if dispatch_backend(backend, x) == "kernel":
+        return kfused.combine_reduce(x, w, mode, trim)
+    return kref.combine_reduce_ref(x, w, mode, trim)
+
+
+# ------------------------------------------------------------ tree forms
+#
+# Leaves carry a leading worker axis m; primitives stream per leaf, in
+# sorted key order.
+
+
 def _as_mat(l: torch.Tensor) -> torch.Tensor:
     """A worker-stacked leaf (m, ...) as a contiguous (m, d) float32 matrix."""
     return l.reshape(l.shape[0], -1).to(torch.float32).contiguous()
+
+
+def tree_pairwise_sqdist(stacked: Tree, *, backend: str = "auto") -> torch.Tensor:
+    """Global (m, m) squared distances summed over per-leaf contributions."""
+    parts = [pairwise_sqdist(_as_mat(stacked[k]), backend=backend)
+             for k in sorted(stacked)]
+    return torch.clamp(sum(parts), min=0.0)
+
+
+def tree_cross_sqdist(stacked: Tree, z: Tree, *,
+                      backend: str = "auto") -> torch.Tensor:
+    """Global (m,) squared distances from the m stacked entries to point z
+    (a dict shaped like one worker's entry), summed per leaf."""
+    parts = [cross_sqdist(_as_mat(stacked[k]),
+                          z[k].reshape(1, -1).to(torch.float32).contiguous(),
+                          backend=backend)[:, 0]
+             for k in sorted(stacked)]
+    return torch.clamp(sum(parts), min=0.0)
+
+
+def tree_weighted_combine(stacked: Tree, w: torch.Tensor, *,
+                          backend: str = "auto",
+                          out_dtype: Optional[torch.dtype] = None) -> Tree:
+    """Per-leaf weighted combine.
+
+    w: (m,) -> a dict shaped like one worker's entry (the aggregate);
+    w: (m, m) -> a dict with the worker axis kept (each row re-mixed).
+    ``out_dtype=None`` keeps each leaf's dtype; pass torch.float32 to keep
+    full precision across Weiszfeld iterations."""
+    def leaf(l):
+        out = weighted_combine(_as_mat(l), w, backend=backend)
+        shape = l.shape if w.dim() == 2 else l.shape[1:]
+        return out.reshape(shape).to(out_dtype or l.dtype)
+    return {k: leaf(stacked[k]) for k in sorted(stacked)}
+
+
+def tree_combine_reduce(stacked: Tree, w: torch.Tensor, *, mode: str, trim=0,
+                        backend: str = "auto") -> Tree:
+    """Per-leaf ``combine_reduce``: mix the m worker rows with w (k, m) and
+    reduce the result coordinate-wise, returning a dict shaped like one
+    worker's entry. One kernel launch per leaf on the kernel backend."""
+    def leaf(l):
+        out = combine_reduce(_as_mat(l), w, mode, trim, backend=backend)
+        return out.reshape(l.shape[1:]).to(l.dtype)
+    return {k: leaf(stacked[k]) for k in sorted(stacked)}
 
 
 # ============================================================ rule bases
@@ -111,30 +210,64 @@ class CoordinateWiseRule(Aggregator):
         return {k: self.leaf(stacked[k]) for k in sorted(stacked)}
 
 
+class GeometryRule(Aggregator):
+    """Rules driven by global pairwise geometry: the (m, m) statistics are
+    computed once from summed per-leaf contributions, turned into per-worker
+    weights, and applied per leaf by the combine primitive."""
+
+    def _weights(self, d2: torch.Tensor) -> torch.Tensor:  # (m, m) -> (m,)|(m, m)
+        raise NotImplementedError
+
+    def tree(self, stacked: Tree) -> Tree:
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+        return tree_weighted_combine(stacked, self._weights(d2),
+                                     backend=self.backend)
+
+
 # ============================================================ registry
 
 _REGISTRY: Dict[str, Callable[..., Aggregator]] = {}
-_NOT_PORTED = ("krum", "geomed", "mfm", "nnm")
 
 
 def register(name: str, factory: Callable[..., Aggregator]) -> None:
     _REGISTRY[name] = factory
 
 
-def get_aggregator(name: str, delta: float = 0.25,
-                   backend: str = "auto") -> Aggregator:
-    """The rule registered as ``name``. Rules of the JAX package that this
-    package has not ported yet raise ``NotImplementedError``."""
+def registered_rules():
+    """Names registered by ``repro_torch.core.aggregators`` (composites
+    ``nnm+<base>`` are resolved by name and not listed)."""
     import repro_torch.core.aggregators  # noqa: F401  (registers the rules)
-    name = name.lower()
+    return tuple(sorted(_REGISTRY))
+
+
+def get_aggregator(name: str, delta: float = 0.25, tau: Optional[float] = None,
+                   backend: str = "auto", **kwargs) -> Aggregator:
+    """The rule registered as ``name``: ``mean``, ``cwmed``, ``cwtm``,
+    ``krum``, ``geomed``, ``mfm``, or ``nnm+<base>`` (Nearest-Neighbor Mixing
+    in front of any of them, ``delta`` shared by both). ``tau`` is MFM's
+    threshold (None: given per call). Extra rule hyperparameters (Krum's
+    ``multi``, GeoMed's ``iters``/``eps``) pass through ``kwargs``; unknown
+    ones raise ``TypeError``, unknown names ``ValueError``.
+
+    Rules are stateless after construction, so instances are memoized per
+    (name, delta, tau, backend, kwargs): the per-round driver asks for its
+    rule at every aggregation."""
+    return _cached_rule(name.lower(), delta, tau, backend,
+                        tuple(sorted(kwargs.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_rule(name: str, delta: float, tau: Optional[float], backend: str,
+                 extra: tuple) -> Aggregator:
+    import repro_torch.core.aggregators as rules  # registers on first import
+    kw = dict(extra)
+    if name.startswith("nnm+"):
+        return rules.NNM(get_aggregator(name[4:], delta, tau, backend, **kw),
+                         delta, backend=backend)
     if name not in _REGISTRY:
-        if name.split("+")[0] in _NOT_PORTED:
-            raise NotImplementedError(
-                f"aggregator {name!r} is not yet ported to repro_torch; "
-                f"ported: {tuple(sorted(_REGISTRY))}")
         raise ValueError(f"unknown aggregator {name!r}; known: "
-                         f"{tuple(sorted(_REGISTRY))}")
-    return _REGISTRY[name](delta=delta, backend=backend)
+                         f"{registered_rules()} and nnm+<base>")
+    return _REGISTRY[name](delta=delta, tau=tau, backend=backend, **kw)
 
 
 def count_ceil(v: float) -> int:

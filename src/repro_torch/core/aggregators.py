@@ -1,20 +1,147 @@
-"""Robust aggregation rules over the ``core.agg_engine`` primitives: the
-coordinate-wise rules of the JAX package's ``core/aggregators.py``.
-``agg.tree(stacked)`` reduces every leaf (leading worker axis m) to one
-worker's shape.
+"""Robust aggregation rules over the ``core.agg_engine`` primitives: the class
+rules of the JAX package's ``core/aggregators.py``. ``agg.tree(stacked)``
+reduces every leaf (leading worker axis m) to one worker's shape.
 
-Krum, GeoMed, NNM and MFM are not ported yet; ``get_aggregator`` says so.
+Coordinate-wise rules (Mean/CWMed/CWTM) apply leaf by leaf. Distance-based
+rules (Krum/GeoMed/NNM/MFM) compute the *global* pairwise distances by
+summing per-leaf contributions, turn them into per-worker weights on the
+device, then combine per leaf; no rule materializes the flat (m, d_total)
+matrix.
+
+``(δ, κ_δ)``-robustness (Def. 3.2, Allouah et al. 2023) holds for CWMed,
+CWTM, Krum and GeoMed (κ_δ in ``KAPPA``); MFM (Alg. 3 of the paper) is
+deliberately *not* (δ,κ)-robust (App. F.1) but gives the optimal δ²-scaling
+under bounded noise (Lemma 5.1).
+
+The uniform theta forms of the JAX package (its lane-batched sweeps) are not
+ported yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.core.agg_engine import (
-    CoordinateWiseRule, cw_mean, cw_median, cw_trimmed_mean, register,
-    trim_count,
+    Aggregator, CoordinateWiseRule, GeometryRule, Tree, count_ceil, cw_mean,
+    cw_median, cw_trimmed_mean, pairwise_sqdist, register,
+    tree_combine_reduce, tree_cross_sqdist, tree_pairwise_sqdist,
+    tree_weighted_combine, trim_count,
 )
+
+__all__ = ["Mean", "CWMed", "CWTM", "Krum", "GeoMed", "NNM", "MFM", "KAPPA",
+           "pairwise_sqdists", "tree_pairwise_sqdists", "tree_stack_to_mat",
+           "mat_to_tree"]
+
+
+# ---------------------------------------------------------------- helpers
+#
+# Flat-matrix helpers for tests and diagnostics; the rules do not use them.
+
+
+def tree_stack_to_mat(stacked: Tree) -> torch.Tensor:
+    """(m, ...)-leaf dict -> (m, d) float32 matrix, leaves in sorted key order
+    (diagnostics only: O(m·d))."""
+    m = next(iter(stacked.values())).shape[0]
+    return torch.cat([stacked[k].reshape(m, -1).to(torch.float32)
+                      for k in sorted(stacked)], dim=1)
+
+
+def mat_to_tree(vec: torch.Tensor, like: Tree) -> Tree:
+    """(d,) vector -> dict shaped like one worker's entry of ``like``."""
+    out, off = {}, 0
+    for k in sorted(like):
+        shape = like[k].shape[1:]
+        size = like[k][0].numel()
+        out[k] = vec[off:off + size].reshape(shape).to(like[k].dtype)
+        off += size
+    return out
+
+
+def pairwise_sqdists(x: torch.Tensor) -> torch.Tensor:
+    """x: (m, d) -> (m, m) squared L2 distances (ref backend)."""
+    return pairwise_sqdist(x.to(torch.float32), backend="ref")
+
+
+def tree_pairwise_sqdists(stacked: Tree) -> torch.Tensor:
+    """Global (m, m) squared distances summed over all leaves (ref backend)."""
+    return tree_pairwise_sqdist(stacked, backend="ref")
+
+
+# ---------------------------------------------------------------- cores
+#
+# The weight/score math of the geometry rules, on the device, with no host
+# sync. Written in the JAX package's full-width masked style (a ``where``
+# over a sorted row rather than a slice) so the op sequence is the same.
+
+
+def _krum_scores(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum of each worker's k nearest squared distances (self excluded)."""
+    m = d2.shape[0]
+    d2 = d2 + torch.diag(torch.full((m,), torch.inf, device=d2.device))
+    srt = torch.sort(d2, dim=1).values
+    col = torch.arange(m, device=d2.device)[None, :]
+    return torch.where(col < k, srt, 0.0).sum(1)
+
+
+def _krum_weights(d2: torch.Tensor, k: int, multi: int) -> torch.Tensor:
+    """(m,) selection weights: 1/multi on the multi best-scored workers."""
+    s = _krum_scores(d2, k)
+    m = s.shape[0]
+    # a stable full argsort by score: jax.lax.top_k(-s, m) keeps the lower
+    # index first among ties, and torch.topk promises no order there
+    idx = torch.sort(-s, descending=True, stable=True).indices
+    per = torch.where(torch.arange(m, device=s.device) < multi, 1.0 / multi, 0.0)
+    return torch.zeros_like(s).scatter_(0, idx, per)
+
+
+def _nnm_weights(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """(m, m) mixing matrix: row i averages worker i's k nearest (self
+    included), ties to the lower index as ``jax.lax.top_k`` breaks them."""
+    m = d2.shape[0]
+    idx = torch.sort(-d2, dim=1, descending=True, stable=True).indices
+    ws = torch.where(torch.arange(m, device=d2.device) < k, 1.0 / k, 0.0)
+    return torch.zeros((m, m), device=d2.device).scatter_(
+        1, idx, ws.expand(m, m))
+
+
+def _mfm_weights(d2: torch.Tensor, tau) -> torch.Tensor:
+    """Median-Filtered-Mean weights (Alg. 3); all-zero => output 0."""
+    m = d2.shape[0]
+    d = torch.sqrt(d2)
+    within_half = (d <= tau / 2).sum(1)  # includes self
+    is_med_candidate = within_half > m / 2
+    any_med = is_med_candidate.any()
+    # the first candidate: argmax returns the first maximum, and takes no bool
+    med_idx = torch.argmax(is_med_candidate.to(torch.int32))
+    close = torch.index_select(d, 0, med_idx.reshape(1))[0] <= tau  # (m,)
+    w = close.to(torch.float32)
+    return torch.where(any_med, w / torch.clamp(w.sum(), min=1.0),
+                       torch.zeros((m,), device=d2.device))
+
+
+def _geomed_tree(stacked: Tree, iters: int, eps: float, backend: str) -> Tree:
+    """``iters`` Weiszfeld iterations from the mean, the iterate in float32
+    throughout and cast back to each leaf's dtype at the end."""
+    m = next(iter(stacked.values())).shape[0]
+    dev = next(iter(stacked.values())).device
+    z = tree_weighted_combine(
+        stacked, torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev),
+        backend=backend, out_dtype=torch.float32)
+    for _ in range(iters):
+        d2 = tree_cross_sqdist(stacked, z, backend=backend)
+        w = 1.0 / torch.sqrt(d2 + eps)
+        z = tree_weighted_combine(stacked, w / w.sum(), backend=backend,
+                                  out_dtype=torch.float32)
+    return {k: z[k].to(stacked[k].dtype) for k in sorted(stacked)}
+
+
+# ---------------------------------------------------------------- rules
 
 
 class Mean(CoordinateWiseRule):
     name = "mean"
+    cr_mode = "mean"  # combine_reduce mode: NNM fuses mix+reduce for us
 
     def _reduce(self, mat):
         return cw_mean(mat, backend=self.backend)
@@ -23,6 +150,7 @@ class Mean(CoordinateWiseRule):
 class CWMed(CoordinateWiseRule):
     """Coordinate-wise median (Yin et al., 2018)."""
     name = "cwmed"
+    cr_mode = "med"
 
     def _reduce(self, mat):
         return cw_median(mat, backend=self.backend)
@@ -31,6 +159,7 @@ class CWMed(CoordinateWiseRule):
 class CWTM(CoordinateWiseRule):
     """Coordinate-wise trimmed mean: drop ⌈δm⌉ highest/lowest per coordinate."""
     name = "cwtm"
+    cr_mode = "tm"
 
     def __init__(self, delta: float = 0.25, backend: str = "auto"):
         super().__init__(backend)
@@ -41,6 +170,105 @@ class CWTM(CoordinateWiseRule):
                                backend=self.backend)
 
 
-register("mean", lambda delta=0.25, backend="auto": Mean(backend=backend))
-register("cwmed", lambda delta=0.25, backend="auto": CWMed(backend=backend))
-register("cwtm", lambda delta=0.25, backend="auto": CWTM(delta, backend=backend))
+class Krum(GeometryRule):
+    """(Multi-)Krum (Blanchard et al., 2017): pick the vector(s) with the
+    smallest sum of distances to its m - ⌈δm⌉ - 2 nearest neighbours."""
+    name = "krum"
+
+    def __init__(self, delta: float = 0.25, multi: int = 1,
+                 backend: str = "auto"):
+        super().__init__(backend)
+        self.delta = delta
+        self.multi = multi
+
+    def _k(self, m: int) -> int:
+        return max(m - count_ceil(self.delta * m) - 2, 1)
+
+    def _weights(self, d2):
+        return _krum_weights(d2, self._k(d2.shape[0]), self.multi)
+
+
+class GeoMed(Aggregator):
+    """Geometric median via Weiszfeld iterations (Pillutla et al., 2022).
+    Each iteration is one cross-distance accumulate (x vs the iterate z) plus
+    one weighted combine, both streamed per leaf."""
+    name = "geomed"
+
+    def __init__(self, iters: int = 8, eps: float = 1e-8,
+                 backend: str = "auto"):
+        super().__init__(backend)
+        self.iters = iters
+        self.eps = eps
+
+    def tree(self, stacked):
+        return _geomed_tree(stacked, self.iters, self.eps, self.backend)
+
+
+class NNM(GeometryRule):
+    """Nearest-Neighbor Mixing (Allouah et al., 2023): replace each input by
+    the mean of its m - ⌈δm⌉ nearest neighbours, then apply a base rule."""
+    name = "nnm"
+
+    def __init__(self, base: Aggregator, delta: float = 0.25,
+                 backend: str = "auto"):
+        super().__init__(backend)
+        self.base = base
+        self.delta = delta
+        self.name = f"nnm+{base.name}"
+
+    def _weights(self, d2: torch.Tensor) -> torch.Tensor:
+        m = d2.shape[0]
+        return _nnm_weights(d2, m - count_ceil(self.delta * m))
+
+    def tree(self, stacked):
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+        w = self._weights(d2)
+        mode = getattr(self.base, "cr_mode", None)
+        if mode is not None:
+            # coordinate-wise base: mix+reduce as one primitive, the (m, d)
+            # mixed stack never written (agg_engine.combine_reduce)
+            trim = trim_count(self.base.delta, d2.shape[0]) if mode == "tm" else 0
+            return tree_combine_reduce(stacked, w, mode=mode, trim=trim,
+                                       backend=self.backend)
+        mixed = tree_weighted_combine(stacked, w, backend=self.backend)
+        return self.base.tree(mixed)
+
+
+class MFM(GeometryRule):
+    """Median-Filtered Mean (Alg. 3). Threshold ``tau`` is set at
+    construction or per call (it scales as 2·C·V/√N with the mini-batch size
+    N, ``MLMCConfig.mfm_tau``)."""
+    name = "mfm"
+
+    def __init__(self, tau: Optional[float] = None, backend: str = "auto"):
+        super().__init__(backend)
+        self.tau = tau
+
+    def tree(self, stacked, tau: Optional[float] = None):
+        tau = tau if tau is not None else self.tau
+        if tau is None:
+            raise ValueError("MFM needs a threshold: pass tau")
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+        return tree_weighted_combine(stacked, _mfm_weights(d2, tau),
+                                     backend=self.backend)
+
+
+# ---------------------------------------------------------------- registry
+
+KAPPA = {
+    # κ_δ orders from Allouah et al. (2023), Table 1 (up to constants)
+    "mean": lambda d, m: float("inf"),
+    "cwmed": lambda d, m: 4 * d / (1 - 2 * d) if d < 0.5 else float("inf"),
+    "cwtm": lambda d, m: 6 * d / (1 - 2 * d) * (1 + d / (1 - 2 * d)) if d < 0.5 else float("inf"),
+    "krum": lambda d, m: 6 * d / (1 - 2 * d) if d < 0.5 else float("inf"),
+    "geomed": lambda d, m: 4 * (1 + d / (1 - 2 * d)) ** 2 if d < 0.5 else float("inf"),
+}
+
+register("mean", lambda delta=0.25, tau=None, backend="auto": Mean(backend=backend))
+register("cwmed", lambda delta=0.25, tau=None, backend="auto": CWMed(backend=backend))
+register("cwtm", lambda delta=0.25, tau=None, backend="auto": CWTM(delta, backend=backend))
+register("krum", lambda delta=0.25, tau=None, backend="auto", multi=1:
+         Krum(delta, multi=int(multi), backend=backend))
+register("geomed", lambda delta=0.25, tau=None, backend="auto", iters=8,
+         eps=1e-8: GeoMed(int(iters), eps, backend=backend))
+register("mfm", lambda delta=0.25, tau=None, backend="auto": MFM(tau, backend=backend))

@@ -72,6 +72,10 @@ class MLMCConfig:
         return float(np.float32(self.threshold_coeff)
                      / np.sqrt(np.float32(2.0 ** j)))
 
+    def mfm_tau(self, n: int) -> float:
+        """MFM threshold T^N = 2·C·V/√N (Option 2)."""
+        return 2.0 * universal_C(self.m, self.T) * self.V / math.sqrt(n)
+
 
 def tree_norm(tree) -> torch.Tensor:
     """Global L2 norm of a parameter dict, summed over leaves in sorted key

@@ -7,9 +7,13 @@ gradients; Byzantine workers (per the switching strategy, possibly changing
 with a robust rule, applies the MLMC combine + fail-safe filter, and takes an
 optimizer step.
 
-On the card each aggregation launches the coordinate-wise reduce kernel once
-per parameter leaf: an in-cap round (1 ≤ J ≤ j_max) aggregates three levels,
-a beyond-cap round one.
+An in-cap round (1 ≤ J ≤ j_max) aggregates three levels, a beyond-cap round
+one. On the card each aggregation launches its rule's kernels once per
+parameter leaf: the coordinate-wise reduce for Mean/CWMed/CWTM, the pairwise
+distances and then the weighted combine for Krum and MFM, the pairwise
+distances and then the mix+reduce for NNM with a coordinate-wise base, and
+a combine plus, per Weiszfeld iteration, a cross distance and a combine for
+GeoMed.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from torch.func import vmap
 
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core.agg_engine import get_aggregator
+from repro_torch.core.aggregators import MFM
 from repro_torch.core.mlmc import MLMCConfig, mlmc_combine, round_cost, sample_level
 from repro_torch.core.switching import Switcher
 from repro_torch.optim.optimizers import Optimizer, apply_updates
@@ -38,6 +43,9 @@ class DynaBROConfig:
     attack_kwargs: Optional[dict] = None
     use_mlmc: bool = True  # False -> plain robust-aggregated SGD
     agg_backend: str = "auto"  # engine backend: ref | kernel | auto
+    # rule hyperparameters: Krum's multi, GeoMed's iters/eps, MFM's tau (else
+    # mlmc.mfm_tau(n)); a "delta" here overrides the field above
+    aggregator_kwargs: Optional[dict] = None
 
 
 def _per_worker_grads(grad_fn: GradFn, params, batches):
@@ -55,27 +63,35 @@ def _attack_stack(cfg: DynaBROConfig, grads, masks):
     return {k: torch.swapaxes(v, 0, 1) for k, v in attacked.items()}
 
 
-def _aggregate(cfg: DynaBROConfig, stacked):
-    """Robustly aggregate a worker-stacked parameter dict."""
-    agg = get_aggregator(cfg.aggregator, delta=cfg.delta,
-                         backend=cfg.agg_backend)
+def _aggregate(cfg: DynaBROConfig, stacked, n: int):
+    """Robustly aggregate a worker-stacked parameter dict whose entries are
+    means of ``n`` unit gradients; MFM's threshold scales as 1/√n."""
+    kw = dict(cfg.aggregator_kwargs or {})
+    delta = kw.pop("delta", cfg.delta)
+    if cfg.aggregator == "mfm":
+        tau = kw.pop("tau", None)
+        agg = MFM(backend=cfg.agg_backend, **kw)
+        return agg.tree(stacked, tau=cfg.mlmc.mfm_tau(n) if tau is None else tau)
+    agg = get_aggregator(cfg.aggregator, delta=delta, backend=cfg.agg_backend,
+                         **kw)
     return agg.tree(stacked)
 
 
-def _combine_from_levels(cfg: DynaBROConfig, g0_stack, gh, gbar_all, j: int):
+def _combine_from_levels(cfg: DynaBROConfig, g0_stack, gh, gbar_all, n: int,
+                         j: int):
     """Aggregate the per-worker level means and apply the MLMC combine.
     g0_stack / gh / gbar_all are (m, ...) dicts: each worker's level-0 unit,
-    first-half mean and full mean; ``gh`` is None whenever the MLMC branch
-    below is dead."""
+    first-half mean and full mean, means of 1, n//2 and n unit gradients;
+    ``gh`` is None whenever the MLMC branch below is dead."""
     if cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max:
-        g0 = _aggregate(cfg, g0_stack)
-        gjm1 = _aggregate(cfg, gh)
-        gj = _aggregate(cfg, gbar_all)
+        g0 = _aggregate(cfg, g0_stack, 1)
+        gjm1 = _aggregate(cfg, gh, n // 2)
+        gj = _aggregate(cfg, gbar_all, n)
         return mlmc_combine(g0, gjm1, gj, j, cfg.mlmc)
-    g0 = _aggregate(cfg, g0_stack)
+    g0 = _aggregate(cfg, g0_stack, 1)
     g, info = mlmc_combine(g0, None, None, cfg.mlmc.j_max + 1, cfg.mlmc)
     if not cfg.use_mlmc:  # plain robust SGD on the full mini-batch
-        g = _aggregate(cfg, gbar_all)
+        g = _aggregate(cfg, gbar_all, n)
     return g, info
 
 
@@ -88,7 +104,7 @@ def _combine_levels(cfg: DynaBROConfig, grads, j: int):
     gh = None
     if cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max:
         gh = {k: v[:, : n // 2].mean(1) for k, v in grads.items()}
-    return _combine_from_levels(cfg, g0_stack, gh, gbar_all, j)
+    return _combine_from_levels(cfg, g0_stack, gh, gbar_all, n, j)
 
 
 def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer):

@@ -16,20 +16,9 @@
 // Design: one thread per column, 256 threads a block over d. Thread c reads
 // x[i, c] for every row i, so the 32 threads of a warp read 32 adjacent values
 // of one row: coalesced. The m values are cast to float and held in a
-// register array padded to NP2 = next_pow2(m) with 3.0e38f, the TPU kernel's
-// pad value, so +-inf and NaN behave as they do there. A bitonic network
-// fully unrolled over the compile-time NP2 sorts them: every array index is a
-// constant, so the array stays in registers. The runtime m and trim only
-// predicate which sorted rows are summed. min/max propagate NaN (PTX
-// min.NaN / max.NaN), as jnp.minimum / jnp.maximum do and fminf does not: a
-// NaN anywhere in a column makes that column's result NaN.
-//
-// The trimmed sum adds srt[trim] .. srt[m-trim-1] in row order, starting
-// from -0.0f so that the first addition returns srt[trim] exactly, and
-// divides by float(m - 2*trim): the TPU kernel's static-slice sum, and its
-// masked sum up to the sign of zero. The median is the trimmed mean at
-// trim = (m-1)/2 (one row for odd m; (a+b)/2 == 0.5*(a+b) for even m). The
-// mean sums the unsorted rows in order and divides by float(m).
+// register array; the sort network, the padding, the NaN rule and the
+// summation order are those of sort_network.cuh, shared with combine.cu. The
+// runtime m and trim only predicate which sorted rows are summed.
 //
 // The kernel allocates nothing; the caller passes the output buffer and the
 // stream, and checks the returned cudaError_t.
@@ -39,30 +28,16 @@
 
 #include <cstddef>
 
+#include "sort_network.cuh"
+
 namespace {
 
-constexpr float kPad = 3.0e38f;
+using sortnet::kMaxLog2Rows;
+using sortnet::kMean;
+using sortnet::kTrimmed;
+using sortnet::to_float;
+
 constexpr int kThreads = 256;
-constexpr int kMaxLog2Rows = 6;  // m <= 64
-
-enum Mode { kTrimmed = 0, kMean = 1 };
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <int LOG2_NP2, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -75,45 +50,9 @@ __global__ void __launch_bounds__(kThreads)
   float v[NP2];
 #pragma unroll
   for (int i = 0; i < NP2; ++i) {
-    v[i] = i < m ? to_float(x[static_cast<size_t>(i) * d + col]) : kPad;
+    v[i] = i < m ? to_float(x[static_cast<size_t>(i) * d + col]) : 0.0f;
   }
-
-  if (mode == kMean) {
-    float acc = v[0];
-#pragma unroll
-    for (int i = 1; i < NP2; ++i) {
-      if (i < m) acc += v[i];
-    }
-    out[col] = acc / static_cast<float>(m);
-    return;
-  }
-
-  // Bitonic sort, ascending. Stage s merges runs of k = 2^s; pass r compares
-  // rows i and i ^ 2^r. All bounds are compile-time, so it unrolls fully.
-#pragma unroll
-  for (int s = 1; s <= LOG2_NP2; ++s) {
-#pragma unroll
-    for (int r = s - 1; r >= 0; --r) {
-#pragma unroll
-      for (int i = 0; i < NP2; ++i) {
-        const int l = i ^ (1 << r);
-        if (l > i) {
-          const float lo = min_nan(v[i], v[l]);
-          const float hi = max_nan(v[i], v[l]);
-          const bool up = (i & (1 << s)) == 0;
-          v[i] = up ? lo : hi;
-          v[l] = up ? hi : lo;
-        }
-      }
-    }
-  }
-
-  float acc = -0.0f;
-#pragma unroll
-  for (int i = 0; i < NP2; ++i) {
-    if (i >= trim && i < m - trim) acc += v[i];
-  }
-  out[col] = acc / static_cast<float>(m - 2 * trim);
+  out[col] = sortnet::reduce_column<LOG2_NP2>(v, m, mode, trim);
 }
 
 template <typename T>

@@ -1,19 +1,28 @@
-"""Wrappers of the coordinate-wise reduce kernel, ``csrc/cw_reduce.cu``.
+"""Wrappers of the hand-written CUDA kernels of ``csrc/``:
 
-The CUDA counterpart of the reduce stage of the JAX package's Pallas kernel
-(``repro/kernels/fused.py::fused_pass`` with ``reduce=`` "med" / "tm" /
-"mean", static or traced trim): each column of an (m, d) stack is sorted
-across its m rows and reduced to one float32. The source file's header
-gives the design and what bounds it.
+  * ``cw_reduce.cu``: the coordinate-wise reduce (``cw_reduce``, ``cwmed``,
+    ``cwtm``, ``cwtm_masked``), each column of an (m, d) stack sorted across
+    its m rows and reduced to one float32;
+  * ``sqdist.cu``: the (m, m) pairwise squared distances
+    (``pairwise_sqdist``) and the (m, k) cross squared distances
+    (``cross_sqdist``);
+  * ``combine.cu``: the weighted combine ``w @ x`` (``weighted_combine``)
+    and its mix-then-reduce form (``combine_reduce``).
 
-On a CUDA tensor a wrapper launches the kernel, or raises. On a CPU tensor,
+Together they are the CUDA counterpart of the JAX package's two Pallas
+kernels, ``repro/kernels/fused.py::fused_pass`` (every stage) and
+``::cross_sqdist``; ``fused_pass`` below takes the same requests. Each source
+file's header gives its kernel's design and what bounds it.
+
+On a CUDA tensor a wrapper launches its kernel, or raises. On a CPU tensor,
 and only there, it computes the plain version in ``kernels/ref.py``. Every
-launch adds one to ``LAUNCHES["cw_reduce"]``.
+call that launches adds one to its own key of ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -21,39 +30,96 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 REDUCE_MODES = ("med", "tm", "mean")
-MAX_ROWS = 64  # the kernel's register-resident sorting network goes to 64
-LAUNCHES = {"cw_reduce": 0}
+MAX_ROWS = 64  # the register-resident sorts and accumulators go to 64
+LAUNCHES = {"cw_reduce": 0, "pairwise_sqdist": 0, "cross_sqdist": 0,
+            "weighted_combine": 0, "combine_reduce": 0}
 
-_KERNEL_MODE = {"med": 0, "tm": 0, "mean": 1}
+_KERNEL_MODE = {"med": 0, "tm": 0, "mean": 1, None: -1}
 _DTYPES = (torch.float32, torch.bfloat16)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "cw_reduce": {"cw_reduce_launch": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _I, _I, _I, _P],
+               "cross_sqdist_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "sqdist_num_blocks": [_I]},
+    "combine": {"combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+}
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = build.load_library("cw_reduce")
-    lib.cw_reduce_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.cw_reduce_launch.restype = ctypes.c_int
-    lib.cw_reduce_error_string.argtypes = [ctypes.c_int]
-    lib.cw_reduce_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    lib = build.load_library(name)
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x: torch.Tensor, mode: str, trim: int) -> torch.Tensor:
-    m, d = x.shape
-    out = torch.empty(d, dtype=torch.float32, device=x.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.cw_reduce_launch(
-            x.data_ptr(), out.data_ptr(), m, d, int(x.dtype == torch.bfloat16),
-            _KERNEL_MODE[mode], trim, stream)
+def _call(name: str, fn: str, *args) -> None:
+    """Call ``fn`` of library ``name`` on PyTorch's current stream of the
+    first tensor's device and raise on the returned ``cudaError_t``."""
+    lib = _library(name)
+    dev = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"cw_reduce launch failed: "
-                           f"{lib.cw_reduce_error_string(err).decode()}")
-    LAUNCHES["cw_reduce"] += 1
-    return out
+        raise RuntimeError(f"{fn} failed: "
+                           f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+
+
+def _check_stack(x: torch.Tensor, what: str, rows: str = "rows"):
+    """(m, d) of a contiguous float32/bfloat16 matrix with 1 <= m <= 64."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} takes an (m, d) matrix, got shape "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous (m, d) matrix")
+    if not 1 <= x.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{what} takes 1 to {MAX_ROWS} {rows}, got "
+                         f"{x.shape[0]}")
+    return x.shape
+
+
+def _on_cpu(x: torch.Tensor, what: str, *others: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain version), False for CUDA tensors (the
+    kernel); raises for any other device or a mix of devices."""
+    for o in others:
+        if o.device != x.device:
+            raise ValueError(f"{what}: tensors on {x.device} and {o.device}")
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    return False
+
+
+def _is_bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def _clip_trim(mode: Optional[str], trim, k: int) -> int:
+    """The trim a reduce over k rows applies: (k-1)//2 for the median, the
+    given count clipped to [0, (k-1)//2] for the trimmed mean, else 0."""
+    if mode == "med":
+        return (k - 1) // 2
+    if mode == "tm":
+        return min(max(int(trim), 0), (k - 1) // 2)
+    return 0
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in REDUCE_MODES:
+        raise ValueError(f"unknown reduce mode {mode!r}; want one of "
+                         f"{REDUCE_MODES}")
+
+
+# ------------------------------------------------- coordinate-wise reduce
 
 
 def cw_reduce(x: torch.Tensor, mode: str, trim: int = 0) -> torch.Tensor:
@@ -62,33 +128,22 @@ def cw_reduce(x: torch.Tensor, mode: str, trim: int = 0) -> torch.Tensor:
     ``mode``: "med" (median; the mean of the two middle rows for even m),
     "tm" (trimmed mean dropping ``trim`` rows at each end, ``trim`` clipped
     to [0, (m-1)//2]) or "mean"."""
-    if mode not in REDUCE_MODES:
-        raise ValueError(f"unknown reduce mode {mode!r}; want one of "
-                         f"{REDUCE_MODES}")
-    if x.dim() != 2:
-        raise ValueError(f"cw_reduce takes an (m, d) matrix, got shape "
-                         f"{tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"cw_reduce takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("cw_reduce takes a contiguous (m, d) matrix")
-    m, d = x.shape
-    if not 1 <= m <= MAX_ROWS:
-        raise ValueError(f"cw_reduce takes 1 to {MAX_ROWS} rows, got {m}")
-    trim = (m - 1) // 2 if mode == "med" else min(max(int(trim), 0),
-                                                  (m - 1) // 2)
-    if x.device.type == "cpu":
+    _check_mode(mode)
+    m, d = _check_stack(x, "cw_reduce")
+    trim = _clip_trim(mode, trim, m)
+    if _on_cpu(x, "cw_reduce"):
         if mode == "med":
             return kref.cwmed_ref(x)
         if mode == "tm":
             return kref.cwtm_ref(x, trim)
         return kref.cw_mean_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"cw_reduce runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
-        return torch.empty(0, dtype=torch.float32, device=x.device)
-    return _launch(x, mode, trim)
+        return out
+    _call("cw_reduce", "cw_reduce_launch", x, out, m, d, _is_bf16(x),
+          _KERNEL_MODE[mode], trim)
+    LAUNCHES["cw_reduce"] += 1
+    return out
 
 
 def cwmed(x: torch.Tensor) -> torch.Tensor:
@@ -106,3 +161,136 @@ def cwtm_masked(x: torch.Tensor, trim: torch.Tensor) -> torch.Tensor:
     package's traced-trim form). The kernel takes the count as a launch
     argument, so a trim that lives on the card is read back first."""
     return cw_reduce(x, "tm", int(trim))
+
+
+# ------------------------------------------------- squared distances
+
+
+def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
+    """x: (m, d) float32 or bfloat16, contiguous, 1 <= m <= 64 -> (m, m)
+    float32 squared L2 distances ``sq_i + sq_j - 2 x_i.x_j``, clamped at 0."""
+    m, d = _check_stack(x, "pairwise_sqdist")
+    if _on_cpu(x, "pairwise_sqdist"):
+        return kref.pairwise_sqdist_ref(x)
+    if d == 0:
+        return torch.zeros((m, m), dtype=torch.float32, device=x.device)
+    blocks = _library("sqdist").sqdist_num_blocks(d)
+    partial = torch.empty(m * m * blocks, dtype=torch.float32, device=x.device)
+    out = torch.empty((m, m), dtype=torch.float32, device=x.device)
+    _call("sqdist", "pairwise_sqdist_launch", x, partial, out, m, d,
+          _is_bf16(x))
+    LAUNCHES["pairwise_sqdist"] += 1
+    return out
+
+
+def cross_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x: (m, d), y: (k, d), both float32 or both bfloat16, contiguous,
+    1 <= m, k <= 64 -> (m, k) float32 squared L2 distances by direct
+    subtraction ``sum_c (x_ic - y_jc)^2``, clamped at 0."""
+    m, d = _check_stack(x, "cross_sqdist")
+    k, dy = _check_stack(y, "cross_sqdist", rows="rows of y")
+    if dy != d or y.dtype != x.dtype:
+        raise ValueError(f"cross_sqdist takes x and y of one width and dtype, "
+                         f"got {tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(y.shape)} {y.dtype}")
+    if _on_cpu(x, "cross_sqdist", y):
+        return kref.cross_sqdist_ref(x, y)
+    if d == 0:
+        return torch.zeros((m, k), dtype=torch.float32, device=x.device)
+    blocks = _library("sqdist").sqdist_num_blocks(d)
+    partial = torch.empty(m * k * blocks, dtype=torch.float32, device=x.device)
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    _call("sqdist", "cross_sqdist_launch", x, y, partial, out, m, k, d,
+          _is_bf16(x))
+    LAUNCHES["cross_sqdist"] += 1
+    return out
+
+
+# ------------------------------------------------- weighted combine
+
+
+def _check_weights(w: torch.Tensor, m: int, what: str) -> torch.Tensor:
+    if w.dim() != 2 or w.shape[1] != m or not 1 <= w.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{what} takes weights of shape (k, {m}) with 1 <= k "
+                         f"<= {MAX_ROWS}, got {tuple(w.shape)}")
+    if w.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 weights, got "
+                        f"{w.dtype}")
+    return w.to(torch.float32).contiguous()
+
+
+def _combine(x: torch.Tensor, w: torch.Tensor, mode: Optional[str], trim,
+             write_y: bool, what: str):
+    """One pass of ``combine.cu`` over x: (y = w @ x if ``write_y``, the
+    reduce of y's rows if ``mode``). Returns (y or None, reduce or None)."""
+    m, d = _check_stack(x, what)
+    w = _check_weights(w, m, what)
+    k = w.shape[0]
+    trim = _clip_trim(mode, trim, k)
+    if _on_cpu(x, what, w):
+        y = kref.weighted_combine_ref(x, w) if write_y else None
+        red = kref.combine_reduce_ref(x, w, mode, trim) if mode else None
+        return y, red
+    y = (torch.empty((k, d), dtype=torch.float32, device=x.device)
+         if write_y else None)
+    red = torch.empty(d, dtype=torch.float32, device=x.device) if mode else None
+    if d == 0:
+        return y, red
+    _call("combine", "combine_launch", x, w, 0 if y is None else y.data_ptr(),
+          0 if red is None else red.data_ptr(), m, k, d, _is_bf16(x),
+          _KERNEL_MODE[mode], trim)
+    LAUNCHES["combine_reduce" if mode else "weighted_combine"] += 1
+    return y, red
+
+
+def weighted_combine(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (m, d) float32 or bfloat16, contiguous, w: (k, m), 1 <= m, k <= 64
+    -> (k, d) float32 ``w @ x``, each output summed in row order."""
+    return _combine(x, w, None, 0, True, "weighted_combine")[0]
+
+
+def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str,
+                   trim: int = 0) -> torch.Tensor:
+    """The k rows of ``w @ x`` (w: (k, m)) reduced per column to (d,)
+    float32 by ``mode`` ("med", "tm" with ``trim`` clipped to
+    [0, (k-1)//2], or "mean"), without writing ``w @ x``: one pass over x."""
+    _check_mode(mode)
+    return _combine(x, w, mode, trim, False, "combine_reduce")[1]
+
+
+def fused_pass(x: torch.Tensor, *, w: Optional[torch.Tensor] = None,
+               reduce: Optional[str] = None, trim=0, pairwise: bool = False,
+               combine: bool = False) -> dict:
+    """Any subset of the stages of the JAX package's ``fused_pass`` over
+    x: (m, d), in a dict keyed by the requested stage:
+
+      ``reduce``    (d,)   median / trimmed mean / mean over the rows of
+                           ``w @ x`` when ``w`` is given, of x otherwise;
+      ``pairwise``  (m, m) squared L2 distances of the rows of x;
+      ``combine``   (k, d) ``w @ x`` (needs ``w``: (k, m)).
+
+    ``trim`` (for "tm") is clipped to leave at least one row of the k rows
+    reduced. ``reduce`` and ``combine`` share one launch and one read of x;
+    ``pairwise`` is a launch of its own, a second read of x."""
+    if reduce is None and not pairwise and not combine:
+        raise ValueError("fused_pass: request at least one of "
+                         "reduce/pairwise/combine")
+    if reduce is not None:
+        _check_mode(reduce)
+    if combine and w is None:
+        raise ValueError("fused_pass: the combine stage needs weights w")
+    out = {}
+    if reduce is not None or combine:
+        if w is None:
+            out["reduce"] = cw_reduce(x, reduce, int(trim))
+        else:
+            y, red = _combine(x, w, reduce, trim, combine,
+                              "combine_reduce" if reduce else
+                              "weighted_combine")
+            if reduce is not None:
+                out["reduce"] = red
+            if combine:
+                out["combine"] = y
+    if pairwise:
+        out["pairwise"] = pairwise_sqdist(x)
+    return out

@@ -1,7 +1,11 @@
-"""Plain PyTorch versions of the coordinate-wise reduce kernel.
+"""Plain PyTorch versions of the aggregation kernels: the coordinate-wise
+reduce (``csrc/cw_reduce.cu``), the pairwise and cross squared distances
+(``csrc/sqdist.cu``) and the weighted combine with its mix-then-reduce form
+(``csrc/combine.cu``).
 
 The CPU path of every wrapper in ``kernels/fused.py``, and what
-``chip_smoke.py`` holds the CUDA kernel against on the card.
+``chip_smoke.py`` holds each CUDA kernel against on the card. The distance
+and combine versions copy the JAX package's ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -39,3 +43,45 @@ def cwtm_ref(x: torch.Tensor, trim) -> torch.Tensor:
 def cw_mean_ref(x: torch.Tensor) -> torch.Tensor:
     """x: (m, d) -> (d,) mean over the rows (float32)."""
     return torch.mean(x.to(torch.float32), dim=0)
+
+
+def pairwise_sqdist_ref(x: torch.Tensor) -> torch.Tensor:
+    """x: (m, d) -> (m, m) squared L2 distances (float32), by the Gram
+    expansion ``sq_i + sq_j - 2 x_i.x_j`` clamped at 0 (NaN stays NaN)."""
+    x = x.to(torch.float32)
+    sq = torch.sum(x * x, dim=1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+    return torch.clamp(d2, min=0.0)
+
+
+def cross_sqdist_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x: (m, d), y: (k, d) -> (m, k) squared L2 distances (float32).
+
+    Direct subtraction, never the Gram expansion: Weiszfeld iterates sit
+    close to the points, where the expansion cancels catastrophically in
+    float32 (distances ~1e-7 ||x||^2 round to 0 and GeoMed degenerates to a
+    mean). k is tiny (1 for GeoMed), so the (m, k, d) broadcast is cheap."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    d2 = torch.sum(torch.square(x[:, None, :] - y[None, :, :]), dim=-1)
+    return torch.clamp(d2, min=0.0)
+
+
+def weighted_combine_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (m, d), w: (k, m) -> (k, d) = w @ x (float32)."""
+    return w.to(torch.float32) @ x.to(torch.float32)
+
+
+def combine_reduce_ref(x: torch.Tensor, w: torch.Tensor, mode: str,
+                       trim=0) -> torch.Tensor:
+    """The rows of ``w @ x`` (w: (k, m)) reduced coordinate-wise to (d,) by
+    ``mode``: "med", "tm" (``trim`` rows dropped at each end) or "mean". The
+    two steps the separate plain versions take: combine, then reduce."""
+    mixed = weighted_combine_ref(x, w)
+    if mode == "med":
+        return cwmed_ref(mixed)
+    if mode == "tm":
+        return cwtm_ref(mixed, trim)
+    if mode != "mean":
+        raise ValueError(f"unknown combine_reduce mode {mode!r}")
+    return torch.mean(mixed, dim=0)
