@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Time the port's kernels on one CUDA card at the main path's shapes: the
+distance kernels of ``sqdist.cu`` (K3 ``pairwise_sqdist``, K6 ``cross_sqdist``
+at k = 1) at every leaf shape, and beside them the other kernels (K1
+``cwtm`` at trim 8, K4 ``weighted_combine`` at k = 1, K5 ``combine_reduce``
+at k = m, trim 8) at 17 x 8192.
+
+    python3 benchmarks_torch/time_kernels.py [--src DIR] [--label NAME]
+                                             [--sweep] [--units LIST] [--reps N]
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default:
+this checkout's), so that an older tree unpacked beside this one is timed by
+the same code in turns, in one process each. Without ``--sweep`` it prints
+one JSON line per kernel and shape: device µs per call (CUDA graph replay)
+and µs per call issued back to back from Python (CUDA events), and for K3,
+K6 and K4 the same two for the PyTorch call that computes the same function
+(``torch.cdist(...).square_()``, ``torch.mm``); the host-bound per-call time
+also as the least of the repeats. ``--sweep`` instead times
+this checkout's K3 and K6 at every plan of ``--units`` 64-column units per
+block and checks each against its plain version: the measurement that
+chose ``SQDIST_MAX_UNITS`` (the table in ``sqdist.cu``'s header). Float32 inputs; each time is the median of
+``--reps`` repeats.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPES = [(17, 8192), (17, 1280), (17, 128), (17, 10), (17, 9610)]
+
+
+def time_calls_us(fn, iters=1000, warmup=50):
+    """Per-call time of ``fn`` issued back to back from Python."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / iters
+
+
+def time_graph_us(fn, iters=200):
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / iters
+
+
+def median_of(reps, fn, timer):
+    return statistics.median(timer(fn) for _ in range(reps))
+
+
+def repeats(reps, fn, timer):
+    return [timer(fn) for _ in range(reps)]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--units", default="1,2,3,4,6,8,10,15,20,32,64,128")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    sys.path.insert(0, args.src)
+    import torch
+    from repro_torch.kernels import fused
+    from repro_torch.kernels import ref as kref
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    for m, d in SHAPES:
+        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dev)
+        z = (torch.randn(1, d, generator=gen) * 1e-2).to(dev)
+        if args.sweep:
+            n_units = -(-d // fused.SQDIST_UNIT)
+            for name, y, n_pairs, want in [
+                    ("pairwise_sqdist", None, m * (m + 1) // 2,
+                     kref.pairwise_sqdist_ref(x)),
+                    ("cross_sqdist", z, m, kref.cross_sqdist_ref(x, z))]:
+                done = set()
+                for cpb in (int(c) for c in args.units.split(",")):
+                    cpb = min(cpb, n_units)
+                    blocks = -(-n_units // cpb)
+                    if blocks > fused.SQDIST_MAX_BLOCKS or cpb in done:
+                        continue
+                    done.add(cpb)
+                    plan = fused.SqdistPlan(blocks, cpb)
+                    out = torch.empty((m, 1 if y is not None else m),
+                                      dtype=torch.float32, device=dev)
+
+                    def kern(y=y, n_pairs=n_pairs, out=out, plan=plan):
+                        return fused._sqdist(x, y, n_pairs, out, plan)
+                    err = float((kern() - want).abs().max())
+                    print(json.dumps({
+                        "phase": "sweep", "kernel": name, "m": m, "d": d,
+                        "blocks": blocks, "units_per_block": cpb,
+                        "default_plan": list(fused.sqdist_plan(n_pairs, d)),
+                        "max_abs_err": err,
+                        "kernel_us": median_of(args.reps, kern, time_graph_us),
+                        "nvidia_smi": smi}), flush=True)
+            continue
+        cases = [("pairwise_sqdist", lambda: fused.pairwise_sqdist(x),
+                  lambda: torch.cdist(x, x).square_()),
+                 ("cross_sqdist", lambda: fused.cross_sqdist(x, z),
+                  lambda: torch.cdist(x, z).square_())]
+        if d == 8192:
+            w1 = torch.full((1, m), 1.0 / m, device=dev)
+            wm = torch.rand(m, m, generator=gen).to(dev)
+            wm /= wm.sum(1, keepdim=True)
+            cases += [("cw_reduce", lambda: fused.cwtm(x, 8), None),
+                      ("weighted_combine", lambda: fused.weighted_combine(x, w1),
+                       lambda: torch.mm(w1, x)),
+                      ("combine_reduce",
+                       lambda: fused.combine_reduce(x, wm, "tm", 8), None)]
+        for name, kern, library in cases:
+            calls = repeats(args.reps, kern, time_calls_us)
+            print(json.dumps({
+                "phase": "calls", "label": args.label, "kernel": name,
+                "m": m, "d": d,
+                "kernel_us": median_of(args.reps, kern, time_graph_us),
+                "kernel_call_us": statistics.median(calls),
+                "kernel_call_us_min": min(calls),
+                "library_us": (median_of(args.reps, library, time_graph_us)
+                               if library else None),
+                "library_call_us": (median_of(args.reps, library, time_calls_us)
+                                    if library else None),
+                "nvidia_smi": smi}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

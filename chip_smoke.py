@@ -16,22 +16,25 @@ sources there (``nvcc``, one process per source, all started together, into
      rtol = atol = 1e-5, ``pairwise_sqdist`` and ``cross_sqdist`` at atol
      2e-6 after dividing by the larger of the largest distance and the
      largest squared row norm;
-  3. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
+  3. runs one ``pairwise_sqdist`` and one ``cross_sqdist`` call at 17 x 8192
+     and at 17 x 10 under ``torch.profiler`` and fails unless each call is
+     exactly one CUDA kernel on the card;
+  4. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
      setting (m=17, 8 Byzantine, sign_flip under Periodic(10), CWTM at trim
      8, T=150, sgd(0.1), the 64-128-10 Gaussian-mixture MLP at full width)
      through ``make_task`` / ``run_dynabro`` with the default backend, and
      checks the test accuracy, the kernel's launch count, and a second run on
      the plain backend;
-  4. trains the same setting with each geometry rule: NNM+CWTM, MFM
+  5. trains the same setting with each geometry rule: NNM+CWTM, MFM
      (Option 2, adagrad_norm(0.5)), Krum and GeoMed (8 Weiszfeld steps), on
      the default backend and on the plain one, and checks every kernel's
      launch count, the round logs and params against the plain backend, and
      that no discrete choice of the rule (Krum's pick, NNM's neighbours,
      MFM's filter) differs between the two;
-  5. times each kernel at the main path's shapes beside its plain version,
+  6. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound;
-  6. prints the ``{"kernels": [...]}`` summary, then
+  7. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
@@ -246,7 +249,34 @@ def check_geometry_kernels(dev):
     return worst, n
 
 
-# ------------------------------------------------------------- 3. main path
+def device_kernels_per_call(dev):
+    """How many CUDA kernels one call of each distance kernel puts on the
+    card, by ``torch.profiler``, at the main path's widest and narrowest
+    leaves (a many-block and a one-block plan). Fails unless each is 1."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(4)
+    counts = {}
+    for d in (8192, 10):
+        x = torch.randn(M, d, generator=gen).to(dev)
+        z = torch.randn(1, d, generator=gen).to(dev)
+        for name, call in [("pairwise_sqdist", lambda: fused.pairwise_sqdist(x)),
+                           ("cross_sqdist", lambda: fused.cross_sqdist(x, z))]:
+            call()  # warm: the library and the counters exist before the window
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            counts[f"{name} {M}x{d}"] = {"kernels": len(names), "names": names}
+    emit({"phase": "device_kernels_per_call", "counts": counts})
+    for key, c in counts.items():
+        assert c["kernels"] == 1, f"{key}: {c['kernels']} CUDA kernels a call"
+    return counts
+
+
+# ------------------------------------------------------------- 4. main path
 
 
 def main_path(dev):
@@ -304,7 +334,7 @@ def main_path(dev):
     return launches
 
 
-# ------------------------------------------------------ 4. geometry paths
+# ------------------------------------------------------ 5. geometry paths
 
 # rule: (MLMC option, optimizer, launches of each kernel per aggregation and
 # parameter leaf)
@@ -457,7 +487,7 @@ def geometry_path(task, rule):
     return launches
 
 
-# ------------------------------------------------------------- 5. timing
+# ------------------------------------------------------------- 6. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -692,6 +722,8 @@ def main():
                         "pairwise_sqdist, cross_sqdist": {
                             "atol": DIST_ATOL, "of": "max(largest distance, "
                                                      "largest squared row norm)"}}})
+
+    device_kernels_per_call(dev)
 
     launches = main_path(dev)
     task = make_task(M, seed=0, device=dev)

@@ -20,9 +20,10 @@ call that launches adds one to its own key of ``LAUNCHES``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,9 +40,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "cw_reduce": {"cw_reduce_launch": [_P, _P, _I, _I, _I, _I, _I, _P]},
-    "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _I, _I, _I, _P],
-               "cross_sqdist_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-               "sqdist_num_blocks": [_I]},
+    "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+               "cross_sqdist_launch": [_P] * 5 + [_I] * 6 + [_P]},
     "combine": {"combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
 }
 
@@ -58,17 +58,28 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _device_guard(dev: torch.device):
+    """Make ``dev`` the current device for a launch, unless it already is."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _raise_on(name: str, fn: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{fn} failed: "
+                           f"{getattr(_library(name), f'{name}_error_string')(err).decode()}")
+
+
 def _call(name: str, fn: str, *args) -> None:
     """Call ``fn`` of library ``name`` on PyTorch's current stream of the
     first tensor's device and raise on the returned ``cudaError_t``."""
     lib = _library(name)
     dev = args[0].device
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
+    with _device_guard(dev):
         err = getattr(lib, fn)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn} failed: "
-                           f"{getattr(lib, f'{name}_error_string')(err).decode()}")
+    _raise_on(name, fn, err)
 
 
 def _check_stack(x: torch.Tensor, what: str, rows: str = "rows"):
@@ -165,6 +176,98 @@ def cwtm_masked(x: torch.Tensor, trim: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- squared distances
 
+SQDIST_UNIT = 64  # columns: a block's span is whole units (sqdist.cu kUnit)
+SQDIST_MAX_BLOCKS = 132  # one block per SM of the H100 (sqdist.cu kMaxBlocks)
+# A block's share of d, tuned on the H100 (the table in sqdist.cu's header):
+# two 64-column units, or one where a unit already holds more than
+# SQDIST_PAIR_COLS / 2 pair-columns (more than 256 pairs: the Gram matrix of
+# m > 22 rows, the cross distances of m*k > 256).
+SQDIST_MAX_UNITS = 2
+SQDIST_PAIR_COLS = 32768
+COUNTER_SLOTS = 256  # per device: one per stream that has called sqdist.cu
+
+_COUNTERS: dict = {}  # device index -> int32 (COUNTER_SLOTS,), zero between calls
+_SLOTS: dict = {}  # (device index, stream handle) -> address of its counter
+
+
+class SqdistPlan(NamedTuple):
+    blocks: int
+    units_per_block: int
+
+
+@functools.lru_cache(maxsize=4096)
+def sqdist_plan(n_pairs: int, d: int) -> SqdistPlan:
+    """The grid of one ``sqdist.cu`` launch over ``n_pairs`` pairs of rows
+    and ``d`` columns: ``SQDIST_PAIR_COLS / n_pairs`` columns a block, in whole
+    64-column units, at least one and at most ``SQDIST_MAX_UNITS``; at most
+    one block per SM, which widens the share of every block for large d;
+    the units spread evenly and no block left empty. A pure function of its
+    arguments; one block (no scratch, no step across blocks) when d fits in
+    one block's share."""
+    if n_pairs < 1 or d < 1:
+        raise ValueError(f"sqdist_plan: needs n_pairs, d >= 1, got {n_pairs}, {d}")
+    n_units = -(-d // SQDIST_UNIT)
+    want = max(1, min(SQDIST_MAX_UNITS,
+                      SQDIST_PAIR_COLS // (n_pairs * SQDIST_UNIT)))
+    blocks = min(-(-n_units // want), SQDIST_MAX_BLOCKS)
+    per_block = -(-n_units // blocks)
+    return SqdistPlan(-(-n_units // per_block), per_block)
+
+
+def _counter_ptr(dev: torch.device, stream: int) -> int:
+    """Address of the int32 counter of ``stream`` on ``dev``: one slot of a
+    per-device tensor allocated (zeroed, and waited for) at the first call
+    on the device, so that no CUDA graph capture records or owns it, and
+    one slot per stream, so that calls running at once never share one."""
+    key = (dev.index, stream)
+    address = _SLOTS.get(key)
+    if address is None:
+        counters = _COUNTERS.get(dev.index)
+        if counters is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "pairwise_sqdist/cross_sqdist: the first call on a device "
+                    "allocates the kernel's counters and cannot be captured; "
+                    "call once before capturing a CUDA graph")
+            counters = torch.zeros(COUNTER_SLOTS, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize(dev)
+            _COUNTERS[dev.index] = counters
+        slot = sum(1 for k in _SLOTS if k[0] == dev.index)
+        if slot >= COUNTER_SLOTS:
+            raise RuntimeError(f"pairwise_sqdist/cross_sqdist: more than "
+                               f"{COUNTER_SLOTS} streams on {dev}")
+        address = _SLOTS[key] = counters.data_ptr() + 4 * slot
+    return address
+
+
+def _sqdist(x: torch.Tensor, y: Optional[torch.Tensor], n_pairs: int,
+            out: torch.Tensor, plan: Optional[SqdistPlan] = None) -> torch.Tensor:
+    """One launch of ``sqdist.cu`` into ``out``: the Gram distances of x
+    (``y`` None) or x against y, by ``plan`` (default: ``sqdist_plan``);
+    scratch only for more than one block."""
+    m, d = x.shape
+    blocks, per_block = plan or sqdist_plan(n_pairs, d)
+    dev = x.device
+    scratch = (torch.empty(blocks * n_pairs, dtype=torch.float32, device=dev)
+               if blocks > 1 else None)
+    lib = _library("sqdist")
+    with _device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counter = _counter_ptr(dev, stream) if blocks > 1 else 0
+        partial = 0 if scratch is None else scratch.data_ptr()
+        if y is None:
+            fn = "pairwise_sqdist_launch"
+            err = lib.pairwise_sqdist_launch(
+                x.data_ptr(), partial, counter, out.data_ptr(), m, d, blocks,
+                per_block, _is_bf16(x), stream)
+        else:
+            fn = "cross_sqdist_launch"
+            err = lib.cross_sqdist_launch(
+                x.data_ptr(), y.data_ptr(), partial, counter, out.data_ptr(), m,
+                y.shape[0], d, blocks, per_block, _is_bf16(x), stream)
+    _raise_on("sqdist", fn, err)
+    return out
+
 
 def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
     """x: (m, d) float32 or bfloat16, contiguous, 1 <= m <= 64 -> (m, m)
@@ -174,11 +277,8 @@ def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
         return kref.pairwise_sqdist_ref(x)
     if d == 0:
         return torch.zeros((m, m), dtype=torch.float32, device=x.device)
-    blocks = _library("sqdist").sqdist_num_blocks(d)
-    partial = torch.empty(m * m * blocks, dtype=torch.float32, device=x.device)
     out = torch.empty((m, m), dtype=torch.float32, device=x.device)
-    _call("sqdist", "pairwise_sqdist_launch", x, partial, out, m, d,
-          _is_bf16(x))
+    _sqdist(x, None, m * (m + 1) // 2, out)
     LAUNCHES["pairwise_sqdist"] += 1
     return out
 
@@ -197,11 +297,8 @@ def cross_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return kref.cross_sqdist_ref(x, y)
     if d == 0:
         return torch.zeros((m, k), dtype=torch.float32, device=x.device)
-    blocks = _library("sqdist").sqdist_num_blocks(d)
-    partial = torch.empty(m * k * blocks, dtype=torch.float32, device=x.device)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    _call("sqdist", "cross_sqdist_launch", x, y, partial, out, m, k, d,
-          _is_bf16(x))
+    _sqdist(x, y, m * k, out)
     LAUNCHES["cross_sqdist"] += 1
     return out
 

@@ -45,7 +45,7 @@ def _dist_close(got, want, *rows):
     assert torch.equal(torch.isfinite(got), finite)
     torch.testing.assert_close(got[~finite], want[~finite], equal_nan=True,
                                rtol=0, atol=0)
-    norms = torch.cat([r.cpu().float().square().sum(1) for r in rows])
+    norms = torch.cat([r.float().square().sum(1).cpu() for r in rows])
     norms = norms[torch.isfinite(norms)]
     scale = max(float(want[finite].max()) if finite.any() else 0.0,
                 float(norms.max()) if norms.numel() else 0.0, 1e-30)
@@ -172,6 +172,208 @@ def test_distances_rerun_bitwise(cuda_device):
     assert torch.equal(fused.pairwise_sqdist(xd), fused.pairwise_sqdist(xd))
     assert torch.equal(fused.cross_sqdist(xd, xd[:1]),
                        fused.cross_sqdist(xd, xd[:1]))
+
+
+# ------------------------------------------------- sqdist.cu: one launch
+
+
+def _one_block_max_d(n_pairs):
+    """The largest d that ``sqdist_plan`` gives one block for n_pairs."""
+    d = fused.SQDIST_UNIT
+    while fused.sqdist_plan(n_pairs, d + fused.SQDIST_UNIT).blocks == 1:
+        d += fused.SQDIST_UNIT
+    return d
+
+
+def _plain_f64(x, y=None):
+    """The plain versions' formulas (``kref``) evaluated in float64 on the
+    card and rounded to float32 once: the reference where d is so wide that
+    the float32 plain version's own rounding (its row norms and its Gram
+    diagonal are two different float32 sums) reaches 2e-6 of the squared
+    norms."""
+    x = x.double()
+    if y is None:
+        sq = (x * x).sum(1)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+    else:
+        y = y.double()
+        d2 = torch.stack([((x - y[j]) ** 2).sum(1) for j in range(y.shape[0])], 1)
+    return d2.clamp(min=0.0).float()
+
+
+def _sqdist_case(kernel, m, d, dtype, seed=0):
+    """(kernel call, reference, rows) of one distance kernel, both on the
+    card."""
+    k = {"pairwise": 0, "cross_k1": 1, "cross_k3": 3}[kernel]
+    xd = _stack(m, d, seed, dtype).to("cuda")
+    if k == 0:
+        return lambda: fused.pairwise_sqdist(xd), _plain_f64(xd), (xd,)
+    yd = _stack(k, d, seed + 1, dtype).to("cuda")
+    return lambda: fused.cross_sqdist(xd, yd), _plain_f64(xd, yd), (xd, yd)
+
+
+@pytest.mark.parametrize("kernel", ["pairwise", "cross_k1", "cross_k3"])
+@pytest.mark.parametrize("d_case", ["1", "3", "10", "one_block",
+                                    "one_block+1", "9610", "2^20"])
+@pytest.mark.parametrize("m", [1, 2, 17, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sqdist_plan_edges_on_card(cuda_device, kernel, d_case, m, dtype):
+    """Every edge of the block planner: one chunk, a ragged chunk, rows that
+    are not 16-byte aligned (odd d; d % 4 != 0 for f32, % 8 for bf16), the
+    largest d of one block and one column more (the first two-block plan),
+    the main path's flat d and 2^20 (the 132-block cap). Held to the plain
+    formulas in float64 at the usual 2e-6: at d = 2^20 the float32 plain
+    version's diagonal residue alone is 3-4e-6 of the squared norm (bf16
+    rows, measured on an NVIDIA H100), where the kernel's diagonal is
+    exactly 0. Bitwise equal on rerun."""
+    n_pairs = {"pairwise": m * (m + 1) // 2, "cross_k1": m,
+               "cross_k3": 3 * m}[kernel]
+    one = _one_block_max_d(n_pairs)
+    d = {"one_block": one, "one_block+1": one + 1, "2^20": 1 << 20}.get(
+        d_case) or int(d_case)
+    plan = fused.sqdist_plan(n_pairs, d)
+    if d_case == "one_block":
+        assert plan.blocks == 1
+    if d_case == "one_block+1":
+        assert plan.blocks == 2
+    if d_case == "2^20":
+        assert plan.blocks == fused.SQDIST_MAX_BLOCKS
+    kern, want, rows = _sqdist_case(kernel, m, d, dtype, seed=m + d)
+    got = kern()
+    _dist_close(got, want, *rows)
+    assert torch.equal(got, kern()), "rerun differs"
+    if kernel == "pairwise":
+        assert torch.equal(got, got.T)
+        assert not got.diagonal().any()
+
+
+@pytest.mark.parametrize("d", [12, 1280, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sqdist_unaligned_base_on_card(cuda_device, d, dtype):
+    """A stack whose first row starts 1 element past a 16-byte boundary,
+    with d a multiple of 8: the kernel takes its scalar path."""
+    x = _stack(17, d, d, dtype)
+    y = _stack(2, d, d + 1, dtype)
+    buf = torch.zeros(17 * d + 1, dtype=dtype, device=cuda_device)
+    xd = buf[1:].view(17, d)
+    xd.copy_(x)
+    ybuf = torch.zeros(2 * d + 1, dtype=dtype, device=cuda_device)
+    yd = ybuf[1:].view(2, d)
+    yd.copy_(y)
+    assert xd.data_ptr() % 16 and yd.data_ptr() % 16
+    _dist_close(fused.pairwise_sqdist(xd), kref.pairwise_sqdist_ref(x), x)
+    _dist_close(fused.cross_sqdist(xd, yd), kref.cross_sqdist_ref(x, y), x, y)
+    _dist_close(fused.cross_sqdist(xd, yd[:1]), kref.cross_sqdist_ref(x, y[:1]),
+                x, y)
+
+
+@pytest.mark.parametrize("d", [10, 128, 1280, 9610])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sqdist_nan_and_outlier_rows_on_card(cuda_device, d, dtype):
+    """A 1e30 row and a row with a NaN, on one-block and many-block plans:
+    the same non-finite entries as the plain versions."""
+    x = _stack(17, d, 7, dtype)
+    x[0] = 1e30
+    x[5, d // 2] = float("nan")
+    z = _stack(1, d, 8, dtype)
+    xd, zd = x.to(cuda_device), z.to(cuda_device)
+    pw = fused.pairwise_sqdist(xd)
+    assert torch.isnan(pw[5]).all() and torch.isnan(pw[:, 5]).all()
+    _dist_close(pw, kref.pairwise_sqdist_ref(x), x)
+    cross = fused.cross_sqdist(xd, zd)
+    assert torch.isnan(cross[5]).all()
+    _dist_close(cross, kref.cross_sqdist_ref(x, z), x, z)
+    _dist_close(fused.cross_sqdist(zd, xd), kref.cross_sqdist_ref(z, x), x, z)
+
+
+def test_sqdist_graph_replay_bitwise(cuda_device):
+    """A CUDA graph of 8 calls (one-block and many-block plans of both
+    kernels), replayed twice, gives the eager calls' bits: the counter is
+    back at 0 after every call."""
+    xs = [_stack(17, d, 40 + d, torch.float32).to(cuda_device)
+          for d in (10, 8192, 1280, 9610)]
+    zs = [x[:1].clone() for x in xs]
+
+    def calls():
+        outs = []
+        for x, z in zip(xs, zs):
+            outs += [fused.pairwise_sqdist(x), fused.cross_sqdist(x, z)]
+        return outs
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert len(captured) == 8
+    for _ in range(2):
+        for out in captured:
+            out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+    assert torch.equal(calls()[1], eager[1])  # eager again after the replays
+
+
+def test_sqdist_two_streams(cuda_device):
+    """Calls alternating between two streams, then calls running at once on
+    both: each stream has its own counter, so every result keeps its bits."""
+    xs = [_stack(17, 8192 + 64 * i, 50 + i, torch.float32).to(cuda_device)
+          for i in range(4)]
+    want = [(fused.pairwise_sqdist(x), fused.cross_sqdist(x, x[:1]))
+            for x in xs]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, x in enumerate(xs):  # alternating
+        with torch.cuda.stream(s1 if i % 2 else s2):
+            got.append((fused.pairwise_sqdist(x), fused.cross_sqdist(x, x[:1])))
+    torch.cuda.synchronize()
+    for (a, b), (c, e) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, e)
+    big = [_stack(64, 1 << 18, 60 + i, torch.float32).to(cuda_device)
+           for i in range(2)]
+    big_want = [fused.pairwise_sqdist(x) for x in big]
+    torch.cuda.synchronize()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):  # at once: 132 blocks on each stream
+        outs = []
+        for s, x in zip((s1, s2), big):
+            with torch.cuda.stream(s):
+                outs.append([fused.pairwise_sqdist(x) for _ in range(4)])
+        torch.cuda.synchronize()
+        for o, w in zip(outs, big_want):
+            assert all(torch.equal(v, w) for v in o)
+
+
+def test_sqdist_one_launch_per_call(cuda_device):
+    """Each call of either kernel is one CUDA kernel on the card, on a
+    one-block and on a many-block plan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for d in (10, 8192):
+        x = _stack(17, d, 70, torch.float32).to(cuda_device)
+        for call in (lambda: fused.pairwise_sqdist(x),
+                     lambda: fused.cross_sqdist(x, x[:1])):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            assert len(kernels) == 1, [e.name for e in kernels]
+            assert "sqdist_kernel" in kernels[0].name
 
 
 @pytest.mark.parametrize("name", ["krum", "geomed", "nnm+cwtm", "nnm+mean",
