@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's kernels on one CUDA card at the main path's shapes: the
 distance kernels of ``sqdist.cu`` (K3 ``pairwise_sqdist``, K6 ``cross_sqdist``
-at k = 1) at every leaf shape, and beside them the other kernels (K1
-``cwtm`` at trim 8, K4 ``weighted_combine`` at k = 1, K5 ``combine_reduce``
-at k = m, trim 8) at 17 x 8192.
+at k = 1) at every leaf shape, beside them the other kernels (K1 ``cwtm`` at
+trim 8, K4 ``weighted_combine`` at k = 1, K5 ``combine_reduce`` at k = m,
+trim 8) at 17 x 8192, and the combines' tree forms over the main path's four
+leaves as the rules call them (``agg_engine.tree_weighted_combine`` at k = 1
+and k = m, ``agg_engine.tree_combine_reduce`` at trim 8).
 
     python3 benchmarks_torch/time_kernels.py [--src DIR] [--label NAME]
-                                             [--sweep] [--units LIST] [--reps N]
+        [--sweep [sqdist,combine]] [--units LIST] [--cols LIST] [--reps N]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that an older tree unpacked beside this one is timed by
@@ -14,12 +16,18 @@ the same code in turns, in one process each. Without ``--sweep`` it prints
 one JSON line per kernel and shape: device µs per call (CUDA graph replay)
 and µs per call issued back to back from Python (CUDA events), and for K3,
 K6 and K4 the same two for the PyTorch call that computes the same function
-(``torch.cdist(...).square_()``, ``torch.mm``); the host-bound per-call time
-also as the least of the repeats. ``--sweep`` instead times
-this checkout's K3 and K6 at every plan of ``--units`` 64-column units per
-block and checks each against its plain version: the measurement that
-chose ``SQDIST_MAX_UNITS`` (the table in ``sqdist.cu``'s header). Float32 inputs; each time is the median of
-``--reps`` repeats.
+(``torch.cdist(...).square_()``, ``torch.mm``, one per leaf for the tree
+forms); the host-bound per-call time also as the least of the repeats; the
+tree forms also with a digest of their results' bits, to compare two trees.
+``--sweep sqdist`` instead times this checkout's K3 and K6 at every plan of
+``--units`` 64-column units per block: the measurement that chose
+``SQDIST_MAX_UNITS`` (the table in ``sqdist.cu``'s header). ``--sweep
+combine`` times K4 (k = 1 and k = 17) and K5 (k = 17) over the main path's
+tree and over its widest leaf at every plan of ``combine.cu`` (rows a thread
+in ``COMBINE_ROWS``, ``--cols`` columns a block) and checks each against
+the default plan's bits: the measurement that chose ``combine_plan`` (the
+table in ``combine.cu``'s header). ``--sweep`` alone runs both. Float32
+inputs; each time is the median of ``--reps`` repeats.
 """
 import argparse
 import json
@@ -78,12 +86,142 @@ def repeats(reps, fn, timer):
     return [timer(fn) for _ in range(reps)]
 
 
+def leaf_tree(gen, dev):
+    """The main path's stacked parameter tree (17 workers; b1, b2, w1, w2 as
+    ``make_task`` shapes them), and its leaves as (17, d) matrices."""
+    import torch
+    shapes = {"b1": (128,), "b2": (10,), "w1": (64, 128), "w2": (128, 10)}
+    stacked = {k: (torch.randn((17,) + s, generator=gen) * 1e-2).to(dev)
+               for k, s in shapes.items()}
+    return stacked, [stacked[k].reshape(17, -1) for k in sorted(stacked)]
+
+
+def digest(outs):
+    """A hash of the outputs' bits, to compare two trees' results."""
+    import hashlib
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sweep_sqdist(args, fused, kref, dev, smi, gen):
+    """K3 and K6 at every plan of ``--units`` 64-column units a block."""
+    import torch
+    for m, d in SHAPES:
+        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dev)
+        z = (torch.randn(1, d, generator=gen) * 1e-2).to(dev)
+        n_units = -(-d // fused.SQDIST_UNIT)
+        for name, y, n_pairs, want in [
+                ("pairwise_sqdist", None, m * (m + 1) // 2,
+                 kref.pairwise_sqdist_ref(x)),
+                ("cross_sqdist", z, m, kref.cross_sqdist_ref(x, z))]:
+            done = set()
+            for cpb in (int(c) for c in args.units.split(",")):
+                cpb = min(cpb, n_units)
+                blocks = -(-n_units // cpb)
+                if blocks > fused.SQDIST_MAX_BLOCKS or cpb in done:
+                    continue
+                done.add(cpb)
+                plan = fused.SqdistPlan(blocks, cpb)
+                out = torch.empty((m, 1 if y is not None else m),
+                                  dtype=torch.float32, device=dev)
+
+                def kern(y=y, n_pairs=n_pairs, out=out, plan=plan):
+                    return fused._sqdist(x, y, n_pairs, out, plan)
+                err = float((kern() - want).abs().max())
+                print(json.dumps({
+                    "phase": "sweep", "kernel": name, "m": m, "d": d,
+                    "blocks": blocks, "units_per_block": cpb,
+                    "default_plan": list(fused.sqdist_plan(n_pairs, d)),
+                    "max_abs_err": err,
+                    "kernel_us": median_of(args.reps, kern, time_graph_us),
+                    "nvidia_smi": smi}), flush=True)
+
+
+def sweep_combine(args, fused, kref, dev, smi, gen):
+    """K4 (k = 1 and k = 17) and K5 (k = 17, trim 8) at every plan that
+    ``combine.cu`` takes, over the main path's four-leaf tree and over its
+    widest leaf alone; each plan checked bitwise against the default."""
+    import torch
+    _, leaves = leaf_tree(gen, dev)
+    m = 17
+    w1 = torch.full((1, m), 1.0 / m, device=dev)
+    wm = torch.rand(m, m, generator=gen).to(dev)
+    wm /= wm.sum(1, keepdim=True)
+    for name, w, mode in [("weighted_combine", w1, None),
+                          ("weighted_combine", wm, None),
+                          ("combine_reduce", wm, "tm")]:
+        k = w.shape[0]
+        for tree, xs in [("tree", leaves), ("17x8192", [leaves[2]])]:
+            want = fused._combine(xs, w, mode, 8, mode is None, "sweep")
+            for r in fused.COMBINE_ROWS:
+                for cols in (int(c) for c in args.cols.split(",")):
+                    plan = fused.CombinePlan(r, cols)
+                    if not fused.combine_plan_fits(plan, m, k):
+                        continue
+
+                    def kern(xs=xs, w=w, mode=mode, plan=plan):
+                        return fused._combine(xs, w, mode, 8, mode is None,
+                                              "sweep", plan=plan)
+                    got = kern()
+                    same = all(torch.equal(a, b)
+                               for a, b in zip(got[0] or got[1], want[0] or want[1]))
+                    print(json.dumps({
+                        "phase": "sweep", "kernel": name, "k": k, "m": m,
+                        "leaves": tree, "d": sum(x.shape[1] for x in xs),
+                        "rows_per_thread": r, "cols_per_block": cols,
+                        "default_plan": list(fused.combine_plan(k)),
+                        "bitwise_equal_default": same,
+                        "kernel_us": median_of(args.reps, kern, time_graph_us),
+                        "nvidia_smi": smi}), flush=True)
+
+
+def tree_rows(args, dev, smi, gen):
+    """The main path's tree forms of K4 (k = 1, k = m) and K5 (k = m, trim
+    8) through ``agg_engine`` on the kernel backend, as the rules call them,
+    beside one ``torch.mm`` per leaf; a digest of each result's bits."""
+    import torch
+    from repro_torch.core import agg_engine
+    stacked, leaves = leaf_tree(gen, dev)
+    m = 17
+    w1 = torch.full((m,), 1.0 / m, device=dev)
+    wm = torch.rand(m, m, generator=gen).to(dev)
+    wm /= wm.sum(1, keepdim=True)
+    cases = [
+        ("weighted_combine", "k=1",
+         lambda: agg_engine.tree_weighted_combine(stacked, w1, backend="kernel"),
+         lambda: [torch.mm(w1[None], x) for x in leaves]),
+        ("weighted_combine", "k=m",
+         lambda: agg_engine.tree_weighted_combine(stacked, wm, backend="kernel"),
+         lambda: [torch.mm(wm, x) for x in leaves]),
+        ("combine_reduce", "k=m tm",
+         lambda: agg_engine.tree_combine_reduce(stacked, wm, mode="tm", trim=8,
+                                                backend="kernel"),
+         None)]
+    for name, case, kern, library in cases:
+        calls = repeats(args.reps, kern, time_calls_us)
+        print(json.dumps({
+            "phase": "tree", "label": args.label, "kernel": name, "case": case,
+            "m": m, "d": sum(x.shape[1] for x in leaves), "leaves": len(leaves),
+            "digest": digest(kern()[k] for k in sorted(stacked)),
+            "kernel_us": median_of(args.reps, kern, time_graph_us),
+            "kernel_call_us": statistics.median(calls),
+            "kernel_call_us_min": min(calls),
+            "library_us": (median_of(args.reps, library, time_graph_us)
+                           if library else None),
+            "library_call_us": (median_of(args.reps, library, time_calls_us)
+                                if library else None),
+            "nvidia_smi": smi}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep", nargs="?", const="sqdist,combine", default="")
     ap.add_argument("--units", default="1,2,3,4,6,8,10,15,20,32,64,128")
+    ap.add_argument("--cols", default="32,64,128,256")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     sys.path.insert(0, args.src)
@@ -99,37 +237,14 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
+    if args.sweep:
+        sweeps = {"sqdist": sweep_sqdist, "combine": sweep_combine}
+        for which in args.sweep.split(","):
+            sweeps[which](args, fused, kref, dev, smi, gen)
+        return
     for m, d in SHAPES:
         x = (torch.randn(m, d, generator=gen) * 1e-2).to(dev)
         z = (torch.randn(1, d, generator=gen) * 1e-2).to(dev)
-        if args.sweep:
-            n_units = -(-d // fused.SQDIST_UNIT)
-            for name, y, n_pairs, want in [
-                    ("pairwise_sqdist", None, m * (m + 1) // 2,
-                     kref.pairwise_sqdist_ref(x)),
-                    ("cross_sqdist", z, m, kref.cross_sqdist_ref(x, z))]:
-                done = set()
-                for cpb in (int(c) for c in args.units.split(",")):
-                    cpb = min(cpb, n_units)
-                    blocks = -(-n_units // cpb)
-                    if blocks > fused.SQDIST_MAX_BLOCKS or cpb in done:
-                        continue
-                    done.add(cpb)
-                    plan = fused.SqdistPlan(blocks, cpb)
-                    out = torch.empty((m, 1 if y is not None else m),
-                                      dtype=torch.float32, device=dev)
-
-                    def kern(y=y, n_pairs=n_pairs, out=out, plan=plan):
-                        return fused._sqdist(x, y, n_pairs, out, plan)
-                    err = float((kern() - want).abs().max())
-                    print(json.dumps({
-                        "phase": "sweep", "kernel": name, "m": m, "d": d,
-                        "blocks": blocks, "units_per_block": cpb,
-                        "default_plan": list(fused.sqdist_plan(n_pairs, d)),
-                        "max_abs_err": err,
-                        "kernel_us": median_of(args.reps, kern, time_graph_us),
-                        "nvidia_smi": smi}), flush=True)
-            continue
         cases = [("pairwise_sqdist", lambda: fused.pairwise_sqdist(x),
                   lambda: torch.cdist(x, x).square_()),
                  ("cross_sqdist", lambda: fused.cross_sqdist(x, z),
@@ -156,6 +271,7 @@ def main():
                 "library_call_us": (median_of(args.reps, library, time_calls_us)
                                     if library else None),
                 "nvidia_smi": smi}), flush=True)
+    tree_rows(args, dev, smi, gen)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,15 @@ sources there (``nvcc``, one process per source, all started together, into
      rtol = atol = 1e-5, ``pairwise_sqdist`` and ``cross_sqdist`` at atol
      2e-6 after dividing by the larger of the largest distance and the
      largest squared row norm;
+     Then holds the tree launches of ``combine.cu`` (``tree_weighted_combine``,
+     ``tree_combine_reduce``) against the plain version of every leaf at
+     1e-5 and bitwise against one launch per leaf: k in {1, 17, 64}, every
+     reduce mode, both dtypes, the main path's four-leaf tree, one leaf, more
+     leaves than a launch takes, and widths of 1 and not a multiple of 4;
   3. runs one ``pairwise_sqdist`` and one ``cross_sqdist`` call at 17 x 8192
-     and at 17 x 10 under ``torch.profiler`` and fails unless each call is
-     exactly one CUDA kernel on the card;
+     and at 17 x 10, and one call of each tree form of ``combine.cu`` over
+     the main path's four leaves, under ``torch.profiler`` and fails unless
+     each call is exactly one CUDA kernel on the card;
   4. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
      setting (m=17, 8 Byzantine, sign_flip under Periodic(10), CWTM at trim
      8, T=150, sgd(0.1), the 64-128-10 Gaussian-mixture MLP at full width)
@@ -33,7 +39,7 @@ sources there (``nvcc``, one process per source, all started together, into
      MFM's filter) differs between the two;
   6. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
-     card's bound;
+     card's bound; the combines also over the main path's four-leaf tree;
   7. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -249,27 +255,90 @@ def check_geometry_kernels(dev):
     return worst, n
 
 
+# leaf widths of the trees the tree launches are held on: the main path's,
+# one leaf, more leaves than one launch takes, narrow and odd widths
+TREE_CHECKS = {
+    "main": [d for _, d in LEAF_SHAPES],
+    "one": [9610],
+    "many": [1 + (37 * i) % 97 for i in range(fused.COMBINE_MAX_LEAVES + 9)],
+    "odd": [1, 3, 5, 7, 13, 130, 6, 1282],
+}
+
+
+def check_tree_kernels(dev):
+    """tree_weighted_combine and tree_combine_reduce against the plain
+    version of every leaf (within TOL) and against one launch per leaf (bit
+    for bit), with their launch counts. Returns the largest error of each
+    and the number of comparisons."""
+    gen = torch.Generator().manual_seed(5)
+    worst = {"weighted_combine": 0.0, "combine_reduce": 0.0}
+    n = 0
+    for tree, widths in TREE_CHECKS.items():
+        per_call = -(-len(widths) // fused.COMBINE_MAX_LEAVES)
+        for k, m in [(1, M), (M, M), (64, 64)]:
+            x32 = [torch.randn(m, d, generator=gen) * 3.0 for d in widths]
+            w = torch.rand(k, m, generator=gen).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = [x.to(dtype).to(dev) for x in x32]
+                tag = f"tree={tree} k={k} m={m} {dtype}"
+                before = dict(LAUNCHES)
+                ys = fused.tree_weighted_combine(xs, w)
+                assert LAUNCHES["weighted_combine"] == before["weighted_combine"] + per_call, tag
+                for x, y in zip(xs, ys):
+                    one = fused.weighted_combine(x, w)
+                    assert torch.equal(y.reshape(one.shape), one), f"tree vs leaf {tag}"
+                    worst["weighted_combine"] = max(worst["weighted_combine"], check(
+                        y.reshape(one.shape), kref.weighted_combine_ref(x, w),
+                        f"tree combine {tag}"))
+                    n += 1
+                for mode in fused.REDUCE_MODES:
+                    for trim in (sorted({0, 2, TRIM, (k - 1) // 2}) if mode == "tm" else [0]):
+                        trim = min(trim, (k - 1) // 2)
+                        before = LAUNCHES["combine_reduce"]
+                        reds = fused.tree_combine_reduce(xs, w, mode, trim)
+                        assert LAUNCHES["combine_reduce"] == before + per_call, tag
+                        for x, red in zip(xs, reds):
+                            assert torch.equal(red, fused.combine_reduce(x, w, mode, trim)), \
+                                f"tree vs leaf {mode} trim={trim} {tag}"
+                            worst["combine_reduce"] = max(worst["combine_reduce"], check(
+                                red, kref.combine_reduce_ref(x, w, mode, trim),
+                                f"tree combine_reduce {mode} trim={trim} {tag}"))
+                            n += 1
+    torch.cuda.synchronize()
+    return worst, n
+
+
 def device_kernels_per_call(dev):
     """How many CUDA kernels one call of each distance kernel puts on the
     card, by ``torch.profiler``, at the main path's widest and narrowest
-    leaves (a many-block and a one-block plan). Fails unless each is 1."""
+    leaves (a many-block and a one-block plan), and one call of each tree
+    form of ``combine.cu`` over the main path's four leaves. Fails unless
+    each is 1."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator().manual_seed(4)
-    counts = {}
+    counts, calls = {}, {}
     for d in (8192, 10):
         x = torch.randn(M, d, generator=gen).to(dev)
         z = torch.randn(1, d, generator=gen).to(dev)
-        for name, call in [("pairwise_sqdist", lambda: fused.pairwise_sqdist(x)),
-                           ("cross_sqdist", lambda: fused.cross_sqdist(x, z))]:
-            call()  # warm: the library and the counters exist before the window
+        calls[f"pairwise_sqdist {M}x{d}"] = lambda x=x: fused.pairwise_sqdist(x)
+        calls[f"cross_sqdist {M}x{d}"] = lambda x=x, z=z: fused.cross_sqdist(x, z)
+    leaves = [torch.randn(m, d, generator=gen).to(dev) for m, d in LEAF_SHAPES]
+    w1 = torch.full((1, M), 1.0 / M, device=dev)
+    wm = torch.rand(M, M, generator=gen).to(dev)
+    calls["tree_weighted_combine k=1"] = lambda: fused.tree_weighted_combine(leaves, w1)
+    calls["tree_weighted_combine k=m"] = lambda: fused.tree_weighted_combine(leaves, wm)
+    calls["tree_combine_reduce k=m tm"] = lambda: fused.tree_combine_reduce(
+        leaves, wm, "tm", TRIM)
+    for key, call in calls.items():
+        call()  # warm: the library and the counters exist before the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
-            counts[f"{name} {M}x{d}"] = {"kernels": len(names), "names": names}
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        counts[key] = {"kernels": len(names), "names": names}
     emit({"phase": "device_kernels_per_call", "counts": counts})
     for key, c in counts.items():
         assert c["kernels"] == 1, f"{key}: {c['kernels']} CUDA kernels a call"
@@ -336,22 +405,23 @@ def main_path(dev):
 
 # ------------------------------------------------------ 5. geometry paths
 
-# rule: (MLMC option, optimizer, launches of each kernel per aggregation and
-# parameter leaf)
+# rule: (MLMC option, optimizer, launches of each kernel per aggregation of
+# the 4-leaf tree: the distance kernels one per leaf, the combines one per
+# tree)
 GEOMETRY_PATHS = {
-    "nnm+cwtm": (1, lambda: sgd(0.1), {"pairwise_sqdist": 1, "combine_reduce": 1}),
+    "nnm+cwtm": (1, lambda: sgd(0.1), {"pairwise_sqdist": 4, "combine_reduce": 1}),
     "mfm": (2, lambda: adagrad_norm(0.5),
-            {"pairwise_sqdist": 1, "weighted_combine": 1}),
-    "krum": (1, lambda: sgd(0.1), {"pairwise_sqdist": 1, "weighted_combine": 1}),
-    "geomed": (1, lambda: sgd(0.1), {"weighted_combine": 9, "cross_sqdist": 8}),
+            {"pairwise_sqdist": 4, "weighted_combine": 1}),
+    "krum": (1, lambda: sgd(0.1), {"pairwise_sqdist": 4, "weighted_combine": 1}),
+    "geomed": (1, lambda: sgd(0.1), {"weighted_combine": 9, "cross_sqdist": 32}),
 }
 # what the level draws of seed 0 give: 145 in-cap rounds of 3 aggregations
 # and 5 beyond the cap of 1, 440 aggregations of 4 leaves
 EXPECTED_LAUNCHES = {
-    "nnm+cwtm": {"pairwise_sqdist": 1760, "combine_reduce": 1760},
-    "mfm": {"pairwise_sqdist": 1760, "weighted_combine": 1760},
-    "krum": {"pairwise_sqdist": 1760, "weighted_combine": 1760},
-    "geomed": {"weighted_combine": 15840, "cross_sqdist": 14080},
+    "nnm+cwtm": {"pairwise_sqdist": 1760, "combine_reduce": 440},
+    "mfm": {"pairwise_sqdist": 1760, "weighted_combine": 440},
+    "krum": {"pairwise_sqdist": 1760, "weighted_combine": 440},
+    "geomed": {"weighted_combine": 3960, "cross_sqdist": 14080},
 }
 # the weight core of each rule that makes a discrete choice
 DECISION_CORES = {"nnm+cwtm": "_nnm_weights", "mfm": "_mfm_weights",
@@ -438,7 +508,8 @@ def geometry_path(task, rule):
 
     j_max = cfg.mlmc.j_max
     aggs = sum(3 if 1 <= l.level <= j_max else 1 for l in logs)
-    expected = {k: aggs * len(params0) * per_agg.get(k, 0) for k in KERNELS}
+    assert len(params0) == 4, sorted(params0)
+    expected = {k: aggs * per_agg.get(k, 0) for k in KERNELS}
     diff = max(float((params[k] - ref_params[k]).abs().max()) for k in params)
     row = {"phase": "geometry_path", "rule": rule, "option": option,
            "optimizer": "adagrad_norm(0.5)" if option == 2 else "sgd(0.1)",
@@ -505,9 +576,10 @@ def time_calls_us(fn, iters=1000, warmup=50):
     return a.elapsed_time(b) * 1e3 / iters
 
 
-def time_graph_us(fn, iters=200):
+def time_graph_us(fn, iters=200, reps=5):
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
-    graph and replayed, so no host launch gap sits between them."""
+    graph and replayed, so no host launch gap sits between them; the median
+    of ``reps`` replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -519,12 +591,16 @@ def time_graph_us(fn, iters=200):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) * 1e3 / iters
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / iters)
+    return sorted(times)[reps // 2]
 
 
 def bound_from(nbytes, ops):
@@ -590,11 +666,70 @@ def timing(dev):
     return rows
 
 
+def flat(out):
+    """A kernel's output, or the concatenation of a tree form's outputs."""
+    if isinstance(out, (list, tuple)):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out
+
+
+def time_case(name, case, m, d, kern, plain, library, nbytes, ops):
+    """One ``timing`` row: device and per-call µs of the kernel, its plain
+    version and the library call (None where there is none), and the bound
+    of ``nbytes`` and ``ops``."""
+    b_us, b_by = bound_from(nbytes, ops)
+    row = {"phase": "timing", "kernel": name, "case": case, "m": m,
+           "d": d, "dtype": "float32",
+           "max_abs_err": max_abs_err(flat(kern()), flat(plain())),
+           "kernel_us": time_graph_us(kern),
+           "kernel_call_us": time_calls_us(kern),
+           "plain_us": time_graph_us(plain),
+           "plain_call_us": time_calls_us(plain),
+           "library_us": time_graph_us(library) if library else None,
+           "library_call_us": time_calls_us(library) if library else None,
+           "bound_us": b_us, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+def combine_cases(xs, w1, wm, m, d, tree):
+    """K4 at k = 1 and k = m and K5 (trim 8) over the leaves ``xs`` (one
+    call each: the tree forms when ``tree``), with their plain versions, the
+    ``torch.mm`` call(s) computing K4, bytes and operations."""
+    if tree:
+        k4 = [lambda w: fused.tree_weighted_combine(xs, w),
+              lambda w: [kref.weighted_combine_ref(x, w) for x in xs],
+              lambda w: [torch.mm(w, x) for x in xs]]
+        k5 = [lambda: fused.tree_combine_reduce(xs, wm, "tm", TRIM),
+              lambda: [kref.combine_reduce_ref(x, wm, "tm", TRIM) for x in xs]]
+    else:
+        (x,) = xs
+        k4 = [lambda w: fused.weighted_combine(x, w),
+              lambda w: kref.weighted_combine_ref(x, w),
+              lambda w: torch.mm(w, x)]
+        k5 = [lambda: fused.combine_reduce(x, wm, "tm", TRIM),
+              lambda: kref.combine_reduce_ref(x, wm, "tm", TRIM)]
+    suffix = " tree" if tree else ""
+    return {
+        ("weighted_combine", "k=1" + suffix): (
+            *[(lambda f=f: f(w1)) for f in k4],
+            4 * (m * d + m + d), 2 * m * d),
+        ("weighted_combine", "k=m" + suffix): (
+            *[(lambda f=f: f(wm)) for f in k4],
+            4 * (2 * m * d + m * m), 2 * m * m * d),
+        ("combine_reduce", "k=m tm" + suffix): (
+            *k5, None,  # no single PyTorch call mixes and trims
+            4 * (m * d + m * m + d), d * (2 * m * m + sort_ops(m) + m)),
+    }
+
+
 def geometry_timing(dev):
     """pairwise_sqdist, cross_sqdist (k=1), weighted_combine (k=1 and k=m)
     and combine_reduce (NNM's mixing, trim 8) at the main path's shapes,
     float32, beside their plain versions and a library call where one
-    computes the same function; fields as in ``timing``."""
+    computes the same function, and the two combines over the main path's
+    four leaves in one tree call, beside one ``torch.mm`` per leaf; fields
+    as in ``timing``."""
     gen = torch.Generator().manual_seed(3)
     rows = {}
     for m, d in LEAF_SHAPES + [(M, 9610)]:
@@ -615,37 +750,17 @@ def geometry_timing(dev):
                 lambda: kref.cross_sqdist_ref(x, z),
                 lambda: torch.cdist(x, z).square_(),
                 4 * ((m + 1) * d + m), 3 * m * d),
-            ("weighted_combine", "k=1"): (
-                lambda: fused.weighted_combine(x, w1),
-                lambda: kref.weighted_combine_ref(x, w1),
-                lambda: torch.mm(w1, x),
-                4 * (m * d + m + d), 2 * m * d),
-            ("weighted_combine", "k=m"): (
-                lambda: fused.weighted_combine(x, wm),
-                lambda: kref.weighted_combine_ref(x, wm),
-                lambda: torch.mm(wm, x),
-                4 * (2 * m * d + m * m), 2 * m * m * d),
-            ("combine_reduce", "k=m tm"): (
-                lambda: fused.combine_reduce(x, wm, "tm", TRIM),
-                lambda: kref.combine_reduce_ref(x, wm, "tm", TRIM),
-                None,  # no single PyTorch call mixes and trims
-                4 * (m * d + m * m + d), d * (2 * m * m + sort_ops(m) + m)),
+            **combine_cases([x], w1, wm, m, d, tree=False),
         }
-        for (name, case), (kern, plain, library, nbytes, ops) in cases.items():
-            b_us, b_by = bound_from(nbytes, ops)
-            got, want = kern(), plain()
-            row = {"phase": "timing", "kernel": name, "case": case, "m": m,
-                   "d": d, "dtype": "float32",
-                   "max_abs_err": max_abs_err(got, want),
-                   "kernel_us": time_graph_us(kern),
-                   "kernel_call_us": time_calls_us(kern),
-                   "plain_us": time_graph_us(plain),
-                   "plain_call_us": time_calls_us(plain),
-                   "library_us": time_graph_us(library) if library else None,
-                   "library_call_us": time_calls_us(library) if library else None,
-                   "bound_us": b_us, "bound_by": b_by}
-            emit(row)
-            rows[(name, case, m, d)] = row
+        for (name, case), args in cases.items():
+            rows[(name, case, m, d)] = time_case(name, case, m, d, *args)
+    xs = [(torch.randn(m, d, generator=gen) * 1e-2).to(dev) for m, d in LEAF_SHAPES]
+    d_all = sum(d for _, d in LEAF_SHAPES)
+    w1 = torch.full((1, M), 1.0 / M, device=dev)
+    wm = aggregators._nnm_weights(
+        sum(kref.pairwise_sqdist_ref(x) for x in xs), M - aggregators.count_ceil(DELTA * M))
+    for (name, case), args in combine_cases(xs, w1, wm, M, d_all, tree=True).items():
+        rows[(name, case, M, d_all)] = time_case(name, case, M, d_all, *args)
     return rows
 
 
@@ -723,6 +838,13 @@ def main():
                             "atol": DIST_ATOL, "of": "max(largest distance, "
                                                      "largest squared row norm)"}}})
 
+    tree_worst, tree_checks = check_tree_kernels(dev)
+    emit({"phase": "kernel_check",
+          "kernel": "tree_weighted_combine, tree_combine_reduce",
+          "trees": {k: len(v) for k, v in TREE_CHECKS.items()},
+          "comparisons": tree_checks, "max_abs_err": tree_worst,
+          "bitwise_equal_per_leaf_launches": True, "tolerance": TOL})
+
     device_kernels_per_call(dev)
 
     launches = main_path(dev)
@@ -748,24 +870,27 @@ def main():
         # at trim (m-1)/2 of odd m the trimmed mean keeps only the middle
         # row, so torch.median computes the same function
         med_row, "torch.median(x, 0)", shape=[M, 8192], mode="tm", trim=TRIM)]
+    d_all = sum(d for _, d in LEAF_SHAPES)
     for name, case, replaces, path, library in [
             ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
              "nnm+cwtm", "torch.cdist(x, x).square_()"),
-            ("weighted_combine", "k=1", "src/repro/kernels/fused.py:273",
-             "krum", "torch.mm(w, x)"),
-            ("combine_reduce", "k=m tm", "src/repro/kernels/fused.py:143",
+            ("weighted_combine", "k=1 tree", "src/repro/kernels/fused.py:273",
+             "krum", "torch.mm(w, x) per leaf"),
+            ("combine_reduce", "k=m tm tree", "src/repro/kernels/fused.py:143",
              "nnm+cwtm", None),
             ("cross_sqdist", "k=1", "src/repro/kernels/fused.py:304",
              "geomed", "torch.cdist(x, z).square_()")]:
-        row = geo_rows[(name, case, M, 8192)]
+        tree = case.endswith("tree")
+        row = geo_rows[(name, case, M, d_all if tree else 8192)]
         source = ("src/repro_torch/kernels/csrc/sqdist.cu" if "sqdist" in name
                   else "src/repro_torch/kernels/csrc/combine.cu")
-        err = max(r["max_abs_err"] for key, r in geo_rows.items()
-                  if key[0] == name)
+        err = max([r["max_abs_err"] for key, r in geo_rows.items()
+                   if key[0] == name] + ([tree_worst[name]] if tree else []))
+        shape = ([[m, d] for m, d in LEAF_SHAPES] if tree else [M, 8192])
         entries.append(kernel_entry(
             name, source, replaces, by_path[path][name], launches_of(name), err,
             row, row if library else None, library,
-            check_max_err=geo_worst[name], shape=[M, 8192], case=case))
+            check_max_err=geo_worst[name], shape=shape, case=case))
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ CPU, and the H100's is to be set from the kernel and plain times in PERF.md.
 
 Rules stream leaf by leaf in sorted key order (the JAX package's
 ``jax.tree.leaves`` order); only the (m, m) distance statistics are global,
-and none materializes the flat (m, d_total) matrix.
+and none materializes the flat (m, d_total) matrix. On the kernel backend
+the combine forms take every leaf of a tree in one launch.
 """
 from __future__ import annotations
 
@@ -127,7 +128,7 @@ def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str, trim=0, *,
 # ------------------------------------------------------------ tree forms
 #
 # Leaves carry a leading worker axis m; primitives stream per leaf, in
-# sorted key order.
+# sorted key order (the combines as one launch over the leaves' list).
 
 
 def _as_mat(l: torch.Tensor) -> torch.Tensor:
@@ -161,23 +162,41 @@ def tree_weighted_combine(stacked: Tree, w: torch.Tensor, *,
     w: (m,) -> a dict shaped like one worker's entry (the aggregate);
     w: (m, m) -> a dict with the worker axis kept (each row re-mixed).
     ``out_dtype=None`` keeps each leaf's dtype; pass torch.float32 to keep
-    full precision across Weiszfeld iterations."""
-    def leaf(l):
-        out = weighted_combine(_as_mat(l), w, backend=backend)
+    full precision across Weiszfeld iterations. One kernel launch for the
+    whole tree on the kernel backend (``kernels/fused.tree_weighted_combine``),
+    a plain combine per leaf on the ref backend."""
+    keys = sorted(stacked)
+    if not keys:
+        return {}
+    mats = [_as_mat(stacked[k]) for k in keys]
+    w2 = w[None] if w.dim() == 1 else w
+    if dispatch_backend(backend, mats[0]) == "kernel":
+        outs = kfused.tree_weighted_combine(mats, w2)
+    else:
+        outs = [kref.weighted_combine_ref(x, w2) for x in mats]
+
+    def leaf(l, out):
         shape = l.shape if w.dim() == 2 else l.shape[1:]
         return out.reshape(shape).to(out_dtype or l.dtype)
-    return {k: leaf(stacked[k]) for k in sorted(stacked)}
+    return {k: leaf(stacked[k], o) for k, o in zip(keys, outs)}
 
 
 def tree_combine_reduce(stacked: Tree, w: torch.Tensor, *, mode: str, trim=0,
                         backend: str = "auto") -> Tree:
     """Per-leaf ``combine_reduce``: mix the m worker rows with w (k, m) and
     reduce the result coordinate-wise, returning a dict shaped like one
-    worker's entry. One kernel launch per leaf on the kernel backend."""
-    def leaf(l):
-        out = combine_reduce(_as_mat(l), w, mode, trim, backend=backend)
-        return out.reshape(l.shape[1:]).to(l.dtype)
-    return {k: leaf(stacked[k]) for k in sorted(stacked)}
+    worker's entry. One kernel launch for the whole tree on the kernel
+    backend (``kernels/fused.tree_combine_reduce``)."""
+    keys = sorted(stacked)
+    if not keys:
+        return {}
+    mats = [_as_mat(stacked[k]) for k in keys]
+    if dispatch_backend(backend, mats[0]) == "kernel":
+        outs = kfused.tree_combine_reduce(mats, w, mode, trim)
+    else:
+        outs = [kref.combine_reduce_ref(x, w, mode, trim) for x in mats]
+    return {k: o.reshape(stacked[k].shape[1:]).to(stacked[k].dtype)
+            for k, o in zip(keys, outs)}
 
 
 # ============================================================ rule bases

@@ -1,33 +1,103 @@
-// Weighted combine of an (m, d) worker stack, y = w @ x for w (k, m), and
-// its mix-then-reduce form: the k rows of y sorted and reduced per column
-// (median, trimmed mean or mean) to (d,) float32, optionally writing y too.
+// Weighted combine of worker stacks, y = w @ x for w (k, m) and each leaf
+// x (m, d_l) of a parameter tree, and its mix-then-reduce form: the k rows
+// of y sorted and reduced per column (median, trimmed mean or mean) to
+// (d_l,) float32, optionally writing y too. One launch covers up to 32
+// leaves.
 //
 // Replaces the combine and mix+reduce stages of the Pallas TPU kernel
 // src/repro/kernels/fused.py::fused_pass (_fused_kernel with has_w: the
 // `w @ x` dot, `combine` written to the (k, d) output, `reduce` over the rows
 // of y through _reduce_tile): weighted_combine (fused.py:273) and the
-// fused_op(w=..., reduce=..., combine=...) forms (ops.py:388) that
-// agg_engine.combine_reduce uses for NNM with a coordinate-wise base.
+// fused_op(w=..., reduce=..., combine=...) forms (ops.py:65) that
+// agg_engine.combine_reduce uses for NNM with a coordinate-wise base; the
+// JAX package streams the tree forms (core/agg_engine.py:205-231) one leaf
+// at a time.
 //
-// What bounds it: memory, up to large k. A call reads the m*d inputs once
-// and writes k*d (combine) and/or d (reduce) floats, and does 2*k*m flops per
-// column plus, for a reduce, the sort network's NP2*log2(NP2)*(log2(NP2)+1)/2
-// min/max operations. That is 4.3 operations per byte for the combine at
-// k = m = 17 f32 and 15 for the mix+reduce, under the 20 of the card's f32
-// rate over its memory rate; the mix+reduce at k = m = 64 (37 per byte) is
-// bound by operations. At the training path's shapes (17 x <= 9610 f32,
-// under 1.4 MB) the launch itself takes longer than either.
+// What bounds it: at the training path's shapes (17 x 9610 f32 over four
+// leaves, 0.65 MB) the launch and the latency of one round trip to memory,
+// not the bytes (0.2 us at 3.35 TB/s) and not the arithmetic. A call reads
+// the m*d inputs once and writes k*d (combine) and/or d (reduce) floats, and
+// does 2*k*m flops per column plus, for a reduce, the sort network's
+// NP2*log2(NP2)*(log2(NP2)+1)/2 min/max operations: 4.3 operations per byte
+// for the combine at k = m = 17 f32 and 15 for the mix+reduce, under the 20
+// of the card's f32 rate over its memory rate.
 //
-// Design: the layout of cw_reduce.cu. One thread per column, 256 threads a
-// block over d, w (at most 64 x 64 float32, 16 KB) in shared memory, read by
-// every thread of a warp at one address (a broadcast). x is read row by row,
-// coalesced, and never held: each of the k outputs y_r = sum_i w[r,i]*x_i is
-// one register, accumulated by fmaf in row order i = 0 .. m-1, so k = m = 64
-// needs 64 accumulators and no more. The accumulators live in an array sized
-// by the compile-time NP2 = next_pow2(k), indexed by constants only, so it
-// stays in registers. Template flags pick the outputs: WRITE_Y writes y,
-// REDUCE sorts the k values with sort_network.cuh (shared with cw_reduce.cu:
-// the same padding, NaN rule and row-order sums) and writes the reduction.
+// Design.
+//  * One launch per tree. The caller passes host arrays of the leaves'
+//    pointers, widths and outputs and the first block of each leaf
+//    (kernels/fused.py::combine_launches); combine_launch checks them and
+//    copies them into a LeafTable that goes to the kernel by value, as a
+//    __grid_constant__ parameter. Nothing is copied to the card before the
+//    launch, so it can be captured in a CUDA graph. Blocks are numbered over
+//    the leaves in order, leaf l taking ceil(d_l / C) blocks of C columns;
+//    a block finds its leaf by walking the table's first blocks.
+//  * Enough blocks to fill the card: C = 32 or 64 columns a block, so the
+//    main path's four leaves take 151 blocks (k = 1) or 301 (k = 17) on 132
+//    SMs, where the one-leaf kernel ran 32 blocks of 256 threads over
+//    17 x 8192 and one block over 17 x 128.
+//  * The k outputs of a column are split over S = ceil(k / R) threads, R
+//    rows each (R a template parameter: 1, 3, 6 or 8), so a block is
+//    S * C threads and each thread holds R accumulators. The block stages
+//    its (m, C) tile of x once in shared memory as float32, and the k rows
+//    of w that are used, padded to a multiple of 4 columns, beside it. All
+//    of a thread's global loads go out before the first store to shared
+//    memory (its rows of x in runs of four under one warp-uniform test, and
+//    up to four weights located without a division each): one round trip
+//    to memory before the barrier. A thread reads its column's m inputs
+//    from the tile (consecutive lanes on consecutive columns: no bank
+//    conflicts) and its rows of w four at a time as 16-byte loads that every
+//    lane of the warp shares (the S groups are whole warps: C is a power of
+//    two of at least 32).
+//  * k <= R (k = 1 on GeoMed, Krum and MFM): a thread computes all k
+//    outputs of its column from its x column in registers and w read where
+//    it lies, the same address across the warp: no shared memory, no
+//    barrier.
+//  * Bits: each y[r, c] is one fmaf chain over i = 0 .. m-1 from 0.0f, as in
+//    the one-leaf kernel it replaces, so the plan, the path, the tree and
+//    the launch never change a bit, and no float atomics: reruns and CUDA
+//    graph replays equal eager calls.
+//  * Reduce: after the mix the block writes its k x C mixed values back into
+//    the tile (after a barrier, since the tile held x; the tile has
+//    max(m, NP2) rows), and one thread per column reads NP2 = next_pow2(k)
+//    rows of it into a register array, unconditionally (a test per row made
+//    the compiler branch around every load), and runs sort_network.cuh's
+//    reduce_column (shared with cw_reduce.cu: the
+//    same 3.0e38 padding, NaN rule and row-order sums). The network stays
+//    at next_pow2(k) and in one thread: the sort costs what cw_reduce's does
+//    per column at m = 17, and one thread keeps the row-order sum of the
+//    kept values as it is. It is what K5 adds to K4 (about 0.8 us over the
+//    tree at R = 6, the sweep below): splitting a column's sort over lanes
+//    is the next step if K5 matters.
+//  * Registers: the launch bound is 512 threads, 256 for NP2 = 64, so the
+//    sort's NP2 values stay in registers; the plan keeps S * C within it.
+//
+// Tuned plans (kernels/fused.py::combine_plan): R = 1 and C = 64 at k = 1;
+// above it R = 3, C = 32 for the combine and R = 6, C = 32 for the
+// mix+reduce, with a larger R where S * C would pass the launch bound. Device
+// us per call by CUDA graph replay (benchmarks_torch/time_kernels.py --sweep
+// combine, NVIDIA H100 80GB HBM3, 700 W, f32, m = 17), by (R, C); "tree" is
+// the main path's four leaves (8192, 1280, 128, 10 columns) in one launch:
+//
+//   K4 k = 1,  tree      (1,32) 2.16  (1,64) 2.20  (1,128) 2.20  (3,64) 2.48
+//   K4 k = 1,  17 x 8192 (1,32) 2.22  (1,64) 2.18  (1,128) 2.11  (3,64) 2.41
+//   K4 k = 17, tree      (3,32) 3.16  (3,64) 3.46  (6,32) 3.21  (6,64) 3.28
+//                        (8,32) 3.46  (8,64) 3.38  [(2,32) 3.67  (4,32) 3.20]
+//   K4 k = 17, 17 x 8192 (3,32) 2.73  (3,64) 2.79  (6,32) 2.87  (6,64) 2.95
+//                        (8,32) 3.17  (8,64) 3.00  [(2,32) 2.92  (4,32) 2.88]
+//   K5 k = 17, tree      (3,32) 4.88  (3,64) 4.95  (6,32) 4.03  (6,64) 4.18
+//                        (8,32) 4.53  (8,64) 4.20  [(2,32) 5.55  (4,32) 4.23]
+//   K5 k = 17, 17 x 8192 (3,32) 3.49  (3,64) 3.57  (6,32) 3.79  (8,64) 3.73
+//
+// R = 2 and 4 (in brackets) were built for that sweep and lost to the kept
+// instances at every shape (and R = 4 spilled): they are not built any more.
+// At k = 1 the plans are within the spread of a repeat (0.1 us); at k = 17
+// more rows a thread mean fewer threads to stage x and to sort, fewer mean
+// shorter fmaf chains: the mix alone is fastest at 3 rows, the mix+reduce,
+// whose sort runs on one thread per column, at 6 over the tree (at 3 on
+// 17 x 8192 alone; the tree is what the rules launch). At these
+// sizes a thread's instruction count before and after its one round trip
+// to memory is what the launch pays above its fixed cost (about 2 us), so
+// the staging makes no load it does not need and divides once.
 //
 // The kernel allocates nothing; the caller passes the output buffers and the
 // stream, and checks the returned cudaError_t.
@@ -35,6 +105,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 #include "sort_network.cuh"
@@ -46,54 +117,245 @@ using sortnet::kMean;
 using sortnet::kTrimmed;
 using sortnet::to_float;
 
-constexpr int kThreads = 256;
 constexpr int kMaxRows = 1 << kMaxLog2Rows;
+constexpr int kMaxLeaves = 32;
+constexpr int kWarp = 32;
+constexpr int kMaxSmem = 48 * 1024;  // no opt-in to more dynamic shared memory
+constexpr int kStageLoads = 32;      // rows of x a thread loads in one round
+constexpr int kWLoads = 4;           // weights a thread loads in one round
 constexpr int kNoReduce = -1;
 
-template <int LOG2_NP2, typename T, bool WRITE_Y, bool REDUCE>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ y, float* __restrict__ out, int m,
-                   int k, int d, int mode, int trim) {
-  constexpr int NP2 = 1 << LOG2_NP2;
-  __shared__ float ws[kMaxRows * kMaxRows];
-  for (int t = threadIdx.x; t < k * m; t += kThreads) ws[t] = w[t];
-  __syncthreads();
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d) return;
+// Threads a block may have when the sort holds 2^LOG2_NP2 values: 128
+// registers a thread (the staged x, the accumulators, the sort), 255 for 64.
+constexpr int max_threads(int log2_np2) { return log2_np2 >= 6 ? 256 : 512; }
 
-  float acc[NP2];
+struct Leaf {
+  const void* x;  // (m, d) row-major
+  float* y;       // (k, d) row-major, or null
+  float* out;     // (d,), or null
+  int d;
+  int first_block;
+};
+
+struct LeafTable {
+  Leaf leaf[kMaxLeaves];
+  int n;
+};
+
+// Rows i0, i0 + S, ... < m of column `col` of x, at most kStageLoads of
+// them, as float32 (0 where the column is past d). Returns how many.
+template <typename T>
+__device__ __forceinline__ int load_x(const void* x, float (&v)[kStageLoads],
+                                      int i0, int m, int d, int col,
+                                      bool live, int groups) {
+  const T* p = static_cast<const T*>(x) + static_cast<size_t>(i0) * d + col;
+  const size_t step = static_cast<size_t>(groups) * d;
+  int n = 0;
 #pragma unroll
-  for (int r = 0; r < NP2; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-  for (int i = 0; i < m; ++i) {
-    const float xi = to_float(x[static_cast<size_t>(i) * d + col]);
+  for (int ub = 0; ub < kStageLoads; ub += 4) {
+    if (i0 + ub * groups >= m) break;
 #pragma unroll
-    for (int r = 0; r < NP2; ++r) {
-      if (r < k) acc[r] = fmaf(ws[r * m + i], xi, acc[r]);
+    for (int u = ub; u < ub + 4; ++u) {
+      v[u] = (live && i0 + u * groups < m) ? to_float(p[u * step]) : 0.0f;
     }
+    n = ub + 4;
   }
-  if (WRITE_Y) {
-#pragma unroll
-    for (int r = 0; r < NP2; ++r) {
-      if (r < k) y[static_cast<size_t>(r) * d + col] = acc[r];
-    }
-  }
-  if (REDUCE) out[col] = sortnet::reduce_column<LOG2_NP2>(acc, k, mode, trim);
+  return n;
 }
 
-template <typename T, bool WRITE_Y, bool REDUCE>
-cudaError_t launch(const void* x, const float* w, float* y, float* out, int m,
-                   int k, int d, int mode, int trim, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const dim3 grid((d + kThreads - 1) / kThreads);
-  int log2_np2 = 0;
-  while ((1 << log2_np2) < k) ++log2_np2;
+__device__ __forceinline__ void store_x(const float (&v)[kStageLoads], int n,
+                                        float* xs, int i0, int m, int groups,
+                                        int cols, int c) {
+#pragma unroll
+  for (int ub = 0; ub < kStageLoads; ub += 4) {
+    if (ub >= n) break;
+#pragma unroll
+    for (int u = ub; u < ub + 4; ++u) {
+      if (i0 + u * groups < m) xs[(i0 + u * groups) * cols + c] = v[u];
+    }
+  }
+}
+
+template <int R, int LOG2_NP2>
+__global__ void __launch_bounds__(max_threads(LOG2_NP2))
+    combine_kernel(const __grid_constant__ LeafTable tab,
+                   const float* __restrict__ w, int m, int k, int cols,
+                   int is_bf16, int mode, int trim) {
+  constexpr int NP2 = 1 << LOG2_NP2;
+  extern __shared__ float4 smem[];
+  const int groups = (k + R - 1) / R;
+  const int m4 = (m + 3) & ~3;
+  float* ws = reinterpret_cast<float*>(smem);  // groups*R rows of m4
+  float* xs = ws + groups * R * m4;            // max(m, NP2) rows of cols
+
+  const int b = blockIdx.x;
+  int l = 0;
+  while (l + 1 < tab.n && tab.leaf[l + 1].first_block <= b) ++l;
+  const Leaf& leaf = tab.leaf[l];
+  const int d = leaf.d;
+  const int t = threadIdx.x;
+  const int c = t & (cols - 1);     // cols is a power of two
+  const int s = t >> (__ffs(cols) - 1);  // this thread's rows: s*R .. s*R+R-1
+  const int col = (b - leaf.first_block) * cols + c;
+  const bool live = col < d;
+
+  if (groups == 1 && m <= kStageLoads) {
+    // k <= R: a thread computes all k outputs of its column from its x
+    // column in registers and w read where it lies (one address across the
+    // warp): no shared memory and no barrier.
+    float xv[kStageLoads];
+    if (is_bf16) {
+      load_x<__nv_bfloat16>(leaf.x, xv, 0, m, d, col, live, 1);
+    } else {
+      load_x<float>(leaf.x, xv, 0, m, d, col, live, 1);
+    }
+    float acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int ub = 0; ub < kStageLoads; ub += 4) {
+      if (ub >= m) break;
+#pragma unroll
+      for (int i = ub; i < ub + 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if (i < m && j < k) acc[j] = fmaf(__ldg(w + j * m + i), xv[i], acc[j]);
+        }
+      }
+    }
+    if (!live) return;
+    if (leaf.y != nullptr) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (j < k) leaf.y[static_cast<size_t>(j) * d + col] = acc[j];
+      }
+    }
+    if (leaf.out != nullptr) {
+      float v[NP2];
+#pragma unroll
+      for (int r = 0; r < NP2; ++r) v[r] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < R && j < NP2; ++j) {
+        if (j < k) v[j] = acc[j];
+      }
+      leaf.out[col] = sortnet::reduce_column<LOG2_NP2>(v, k, mode, trim);
+    }
+    return;
+  }
+
+  // Every global load of the block in flight at once: a thread's rows of x
+  // (up to kStageLoads of them) and kWLoads weights, then the stores to
+  // shared memory; more in further rounds (m > kStageLoads * S, or a weight
+  // tile over kWLoads * S * C). Weight e = t + u * nthr is (r, i) of the
+  // padded tile, stepped without a division per element.
+  const int nthr = blockDim.x;
+  const int n_w = groups * R * m4;
+  float xv[kStageLoads];
+  const int nx = is_bf16
+      ? load_x<__nv_bfloat16>(leaf.x, xv, s, m, d, col, live, groups)
+      : load_x<float>(leaf.x, xv, s, m, d, col, live, groups);
+  int wr_row = t / m4;
+  int wr_col = t - wr_row * m4;
+  const int dr = nthr / m4;
+  const int di = nthr - dr * m4;
+  float wv[kWLoads];
+#pragma unroll
+  for (int u = 0; u < kWLoads; ++u) {
+    wv[u] = (t + u * nthr < n_w && wr_row < k && wr_col < m)
+                ? w[wr_row * m + wr_col]
+                : 0.0f;
+    wr_row += dr;
+    wr_col += di;
+    if (wr_col >= m4) {
+      wr_col -= m4;
+      ++wr_row;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kWLoads; ++u) {
+    if (t + u * nthr < n_w) ws[t + u * nthr] = wv[u];
+  }
+  for (int e = t + kWLoads * nthr; e < n_w; e += nthr) {
+    ws[e] = (wr_row < k && wr_col < m) ? w[wr_row * m + wr_col] : 0.0f;
+    wr_row += dr;
+    wr_col += di;
+    if (wr_col >= m4) {
+      wr_col -= m4;
+      ++wr_row;
+    }
+  }
+  store_x(xv, nx, xs, s, m, groups, cols, c);
+  for (int i0 = s + kStageLoads * groups; i0 < m; i0 += kStageLoads * groups) {
+    const int n = is_bf16
+        ? load_x<__nv_bfloat16>(leaf.x, xv, i0, m, d, col, live, groups)
+        : load_x<float>(leaf.x, xv, i0, m, d, col, live, groups);
+    store_x(xv, n, xs, i0, m, groups, cols, c);
+  }
+  __syncthreads();
+
+  float acc[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) acc[j] = 0.0f;
+  const float* wr = ws + s * R * m4;
+  const float* xc = xs + c;
+  int i = 0;
+  for (; i + 4 <= m; i += 4) {
+    const float x0 = xc[i * cols];
+    const float x1 = xc[(i + 1) * cols];
+    const float x2 = xc[(i + 2) * cols];
+    const float x3 = xc[(i + 3) * cols];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float4 w4 = *reinterpret_cast<const float4*>(wr + j * m4 + i);
+      acc[j] = fmaf(w4.x, x0, acc[j]);
+      acc[j] = fmaf(w4.y, x1, acc[j]);
+      acc[j] = fmaf(w4.z, x2, acc[j]);
+      acc[j] = fmaf(w4.w, x3, acc[j]);
+    }
+  }
+  for (; i < m; ++i) {
+    const float xi = xc[i * cols];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = fmaf(wr[j * m4 + i], xi, acc[j]);
+  }
+
+  if (leaf.y != nullptr && live) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = s * R + j;
+      if (r < k) leaf.y[static_cast<size_t>(r) * d + col] = acc[j];
+    }
+  }
+  if (leaf.out != nullptr) {  // every leaf of the table, or none
+    __syncthreads();          // the tile held x until here
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = s * R + j;
+      if (r < k) xs[r * cols + c] = acc[j];
+    }
+    __syncthreads();
+    if (s == 0 && live) {
+      // NP2 rows, read without a test each: reduce_column pads the rows
+      // from k on and the mean never reads them
+      float v[NP2];
+      const float* yc = xs + c;
+#pragma unroll
+      for (int r = 0; r < NP2; ++r) v[r] = yc[r * cols];
+      leaf.out[col] = sortnet::reduce_column<LOG2_NP2>(v, k, mode, trim);
+    }
+  }
+}
+
+template <int R>
+cudaError_t launch_rows(int log2_np2, const LeafTable& tab, int blocks,
+                        int threads, size_t smem, cudaStream_t stream,
+                        const float* w, int m, int k, int cols, int is_bf16,
+                        int mode, int trim) {
   switch (log2_np2) {
-#define COMBINE_CASE(L)                                                     \
-  case L:                                                                   \
-    combine_kernel<L, T, WRITE_Y, REDUCE>                                   \
-        <<<grid, kThreads, 0, stream>>>(xt, w, y, out, m, k, d, mode, trim); \
+#define COMBINE_CASE(L)                                                  \
+  case L:                                                                \
+    combine_kernel<R, L><<<blocks, threads, smem, stream>>>(             \
+        tab, w, m, k, cols, is_bf16, mode, trim);                        \
     break;
     COMBINE_CASE(0)
     COMBINE_CASE(1)
@@ -109,44 +371,82 @@ cudaError_t launch(const void* x, const float* w, float* y, float* out, int m,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_outputs(const void* x, const float* w, float* y,
-                           float* out, int m, int k, int d, int mode,
-                           int trim, cudaStream_t stream) {
-  if (mode == kNoReduce) {
-    return launch<T, true, false>(x, w, y, out, m, k, d, mode, trim, stream);
-  }
-  if (y == nullptr) {
-    return launch<T, false, true>(x, w, y, out, m, k, d, mode, trim, stream);
-  }
-  return launch<T, true, true>(x, w, y, out, m, k, d, mode, trim, stream);
-}
-
 }  // namespace
 
-// x: (m, d) row-major, float32 (is_bf16 == 0) or bfloat16 (is_bf16 == 1);
-// w: (k, m) row-major float32. y: (k, d) float32 or null; out: (d,) float32
-// or null. mode -1: write y = w @ x only; mode 0: the trimmed mean over the
-// sorted rows [trim, k - trim) of y (the median is trim = (k-1)/2); mode 1:
-// the mean of the rows of y. Returns a cudaError_t.
-extern "C" int combine_launch(const void* x, const void* w, void* y, void* out,
-                              int m, int k, int d, int is_bf16, int mode,
-                              int trim, void* stream) {
+// One launch over n <= 32 leaves. x[l]: (m, d[l]) row-major, every leaf
+// float32 (is_bf16 == 0) or every leaf bfloat16 (is_bf16 == 1); w: (k, m)
+// row-major float32. y: null, or y[l] the (k, d[l]) float32 output of leaf
+// l; out: null, or out[l] its (d[l],) float32 reduction. first_block[l]: the
+// blocks of the leaves before l, each leaf taking ceil(d / cols_per_block).
+// mode -1: write y = w @ x only (y not null); mode 0: the trimmed mean over
+// the sorted rows [trim, k - trim) of y (the median is trim = (k-1)/2);
+// mode 1: the mean of the rows of y (out not null for both; y too when not
+// null). rows_per_thread in {1, 3, 6, 8}; cols_per_block a power of two of
+// at least 32, ceil(k / rows_per_thread) * cols_per_block within the launch
+// bound of next_pow2(k). Returns a cudaError_t.
+extern "C" int combine_launch(const void* const* x, void* const* y,
+                              void* const* out, const int* d,
+                              const int* first_block, int n, const void* w,
+                              int m, int k, int is_bf16, int mode, int trim,
+                              int rows_per_thread, int cols_per_block,
+                              void* stream) {
   const bool reduce = mode != kNoReduce;
-  if (m < 1 || m > kMaxRows || k < 1 || k > kMaxRows || d < 1 ||
+  if (n < 1 || n > kMaxLeaves || x == nullptr || d == nullptr ||
+      first_block == nullptr || w == nullptr || m < 1 || m > kMaxRows ||
+      k < 1 || k > kMaxRows ||
       (mode != kNoReduce && mode != kTrimmed && mode != kMean) ||
       (reduce ? out == nullptr : y == nullptr) || trim < 0 ||
-      (mode == kTrimmed && 2 * trim >= k)) {
+      (mode == kTrimmed && 2 * trim >= k) || rows_per_thread < 1 ||
+      cols_per_block < kWarp || (cols_per_block & (cols_per_block - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int log2_np2 = 0;
+  while ((1 << log2_np2) < k) ++log2_np2;
+  const int r = rows_per_thread;
+  const int groups = (k + r - 1) / r;
+  const int m4 = (m + 3) & ~3;
+  const int np2 = 1 << log2_np2;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(groups) * r * m4 +
+                                       static_cast<size_t>(m > np2 ? m : np2) *
+                                           cols_per_block);
+  if (groups > max_threads(log2_np2) / cols_per_block ||
+      smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LeafTable tab{};
+  tab.n = n;
+  long long blocks = 0;
+  for (int l = 0; l < n; ++l) {
+    if (x[l] == nullptr || d[l] < 1 || first_block[l] != blocks ||
+        (y != nullptr && y[l] == nullptr) ||
+        (reduce && out[l] == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tab.leaf[l] = {x[l], y ? static_cast<float*>(y[l]) : nullptr,
+                   reduce ? static_cast<float*>(out[l]) : nullptr, d[l],
+                   first_block[l]};
+    blocks += (d[l] + cols_per_block - 1) / cols_per_block;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float* wf = static_cast<const float*>(w);
-  float* yf = static_cast<float*>(y);
-  float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_outputs<__nv_bfloat16>(x, wf, yf, of, m, k, d, mode,
-                                              trim, s)
-              : launch_outputs<float>(x, wf, yf, of, m, k, d, mode, trim, s);
+  const int nb = static_cast<int>(blocks);
+  const int threads = groups * cols_per_block;
+  cudaError_t err;
+  switch (r) {
+#define ROWS_CASE(R)                                                         \
+  case R:                                                                    \
+    err = launch_rows<R>(log2_np2, tab, nb, threads, smem, s, wf, m, k,      \
+                         cols_per_block, is_bf16, mode, trim);               \
+    break;
+    ROWS_CASE(1)
+    ROWS_CASE(3)
+    ROWS_CASE(6)
+    ROWS_CASE(8)
+#undef ROWS_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -7,7 +7,9 @@
     (``pairwise_sqdist``) and the (m, k) cross squared distances
     (``cross_sqdist``);
   * ``combine.cu``: the weighted combine ``w @ x`` (``weighted_combine``)
-    and its mix-then-reduce form (``combine_reduce``).
+    and its mix-then-reduce form (``combine_reduce``), and both over every
+    leaf of a parameter tree in one launch (``tree_weighted_combine``,
+    ``tree_combine_reduce``).
 
 Together they are the CUDA counterpart of the JAX package's two Pallas
 kernels, ``repro/kernels/fused.py::fused_pass`` (every stage) and
@@ -38,11 +40,13 @@ LAUNCHES = {"cw_reduce": 0, "pairwise_sqdist": 0, "cross_sqdist": 0,
 _KERNEL_MODE = {"med": 0, "tm": 0, "mean": 1, None: -1}
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PP, _IP = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _SIGNATURES = {
     "cw_reduce": {"cw_reduce_launch": [_P, _P, _I, _I, _I, _I, _I, _P]},
     "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _P] + [_I] * 5 + [_P],
                "cross_sqdist_launch": [_P] * 5 + [_I] * 6 + [_P]},
-    "combine": {"combine_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "combine": {"combine_launch": [_PP, _PP, _PP, _IP, _IP] + [_I, _P]
+                + [_I] * 7 + [_P]},
 }
 
 
@@ -305,6 +309,93 @@ def cross_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- weighted combine
 
+COMBINE_MAX_LEAVES = 32  # leaves one launch takes (combine.cu kMaxLeaves)
+COMBINE_ROWS = (1, 3, 6, 8)  # rows a thread: combine.cu's instances
+COMBINE_SMEM = 48 * 1024  # shared bytes a block may use (combine.cu kMaxSmem)
+
+
+class CombinePlan(NamedTuple):
+    rows_per_thread: int  # R: the k rows of a column over ceil(k / R) threads
+    cols_per_block: int  # C: columns of one leaf a block, a power of 2 >= 32
+
+
+def combine_max_threads(k: int) -> int:
+    """The launch bound of ``combine.cu``'s instance for k rows: its sort
+    holds next_pow2(k) values in registers, 64 of them above k = 32."""
+    return 256 if k > 32 else 512
+
+
+def combine_plan_fits(plan: CombinePlan, m: int, k: int) -> bool:
+    """Whether ``combine.cu`` takes ``plan`` for w: (k, m): an instance of
+    its R, a power of two of at least one warp of columns, the launch bound
+    and the shared memory."""
+    r, cols = plan
+    groups = -(-k // r)
+    m4 = -(-m // 4) * 4
+    smem = 4 * (groups * r * m4 + max(m, 1 << (k - 1).bit_length()) * cols)
+    return (r in COMBINE_ROWS and cols >= 32 and cols & (cols - 1) == 0
+            and groups * cols <= combine_max_threads(k) and smem <= COMBINE_SMEM)
+
+
+# The tuned plans (the table in combine.cu's header): (rows a thread,
+# columns a block) at k = 1, and above it for the combine alone and for the
+# mix+reduce.
+COMBINE_PLAN_K1 = CombinePlan(1, 64)
+COMBINE_TUNED = {False: CombinePlan(3, 32), True: CombinePlan(6, 32)}
+
+
+@functools.lru_cache(maxsize=None)
+def combine_plan(k: int, reduce: bool = False) -> CombinePlan:
+    """The plan of a ``combine.cu`` launch for k output rows, with or
+    without the reduce, tuned on the H100 (the table in ``combine.cu``'s
+    header): ``COMBINE_PLAN_K1`` at k = 1, else ``COMBINE_TUNED``, with more
+    rows a thread where its threads would pass the launch bound. A pure
+    function of its arguments; fits every m <= 64."""
+    if not 1 <= k <= MAX_ROWS:
+        raise ValueError(f"combine_plan: needs 1 <= k <= {MAX_ROWS}, got {k}")
+    if k == 1:
+        return COMBINE_PLAN_K1
+    tuned = COMBINE_TUNED[bool(reduce)]
+    for r in COMBINE_ROWS[COMBINE_ROWS.index(tuned.rows_per_thread):]:
+        plan = CombinePlan(r, tuned.cols_per_block)
+        if combine_plan_fits(plan, MAX_ROWS, k):
+            return plan
+    raise AssertionError(f"combine_plan: no instance fits k = {k}")
+
+
+class CombineLaunch(NamedTuple):
+    leaves: tuple  # indices into the tree's leaves
+    first_blocks: tuple  # each leaf's first block in the launch
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def combine_launches(widths: tuple, cols: int) -> tuple:
+    """The launches of ``combine.cu`` over leaves of widths ``widths``:
+    empty leaves take none, the others go in order, ``COMBINE_MAX_LEAVES``
+    to a launch, and a leaf of width d takes ceil(d / cols) blocks of
+    ``cols`` columns, numbered on from the blocks of the leaves before it."""
+    live = [i for i, d in enumerate(widths) if d > 0]
+    launches = []
+    for g in range(0, len(live), COMBINE_MAX_LEAVES):
+        leaves = tuple(live[g:g + COMBINE_MAX_LEAVES])
+        firsts, blocks = [], 0
+        for i in leaves:
+            firsts.append(blocks)
+            blocks += -(-widths[i] // cols)
+        launches.append(CombineLaunch(leaves, tuple(firsts), blocks))
+    return tuple(launches)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_args(widths: tuple, cols: int) -> tuple:
+    """``combine_launches`` with each launch's widths and first blocks as
+    the C arrays ``combine_launch`` takes, built once per tree shape."""
+    return tuple((leaves, len(leaves),
+                  (_I * len(leaves))(*[widths[i] for i in leaves]),
+                  (_I * len(leaves))(*firsts))
+                 for leaves, firsts, _ in combine_launches(widths, cols))
+
 
 def _check_weights(w: torch.Tensor, m: int, what: str) -> torch.Tensor:
     if w.dim() != 2 or w.shape[1] != m or not 1 <= w.shape[0] <= MAX_ROWS:
@@ -316,34 +407,70 @@ def _check_weights(w: torch.Tensor, m: int, what: str) -> torch.Tensor:
     return w.to(torch.float32).contiguous()
 
 
-def _combine(x: torch.Tensor, w: torch.Tensor, mode: Optional[str], trim,
-             write_y: bool, what: str):
-    """One pass of ``combine.cu`` over x: (y = w @ x if ``write_y``, the
-    reduce of y's rows if ``mode``). Returns (y or None, reduce or None)."""
-    m, d = _check_stack(x, what)
+def _check_leaves(xs, what: str) -> int:
+    """m of a non-empty list of contiguous (m, d_l) float32/bfloat16 leaves
+    of one m and one dtype."""
+    if not xs:
+        raise ValueError(f"{what} takes at least one leaf")
+    m = _check_stack(xs[0], what)[0]
+    for x in xs[1:]:
+        _check_stack(x, what)
+        if x.shape[0] != m or x.dtype != xs[0].dtype:
+            raise ValueError(f"{what} takes leaves of one m and one dtype, got "
+                             f"{tuple(xs[0].shape)} {xs[0].dtype} and "
+                             f"{tuple(x.shape)} {x.dtype}")
+    return m
+
+
+def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
+             what: str, keep_rows: bool = True,
+             plan: Optional[CombinePlan] = None):
+    """One pass of ``combine.cu`` over the leaves ``xs``, one launch per
+    ``COMBINE_MAX_LEAVES`` of them: (y = w @ x per leaf if ``write_y``, the
+    reduce of y's rows per leaf if ``mode``), each a list or None. A leaf's
+    y is (k, d), or (d,) at k = 1 unless ``keep_rows``."""
+    m = _check_leaves(xs, what)
     w = _check_weights(w, m, what)
     k = w.shape[0]
     trim = _clip_trim(mode, trim, k)
-    if _on_cpu(x, what, w):
-        y = kref.weighted_combine_ref(x, w) if write_y else None
-        red = kref.combine_reduce_ref(x, w, mode, trim) if mode else None
-        return y, red
-    y = (torch.empty((k, d), dtype=torch.float32, device=x.device)
-         if write_y else None)
-    red = torch.empty(d, dtype=torch.float32, device=x.device) if mode else None
-    if d == 0:
-        return y, red
-    _call("combine", "combine_launch", x, w, 0 if y is None else y.data_ptr(),
-          0 if red is None else red.data_ptr(), m, k, d, _is_bf16(x),
-          _KERNEL_MODE[mode], trim)
-    LAUNCHES["combine_reduce" if mode else "weighted_combine"] += 1
-    return y, red
+    if _on_cpu(xs[0], what, w, *xs[1:]):
+        ys = reds = None
+        if write_y:
+            ys = [kref.weighted_combine_ref(x, w) for x in xs]
+            if k == 1 and not keep_rows:
+                ys = [y[0] for y in ys]
+        if mode:
+            reds = [kref.combine_reduce_ref(x, w, mode, trim) for x in xs]
+        return ys, reds
+    dev = xs[0].device
+    widths = tuple(x.shape[1] for x in xs)
+    ys = ([torch.empty((k, d) if keep_rows or k > 1 else (d,),
+                       dtype=torch.float32, device=dev) for d in widths]
+          if write_y else None)
+    reds = ([torch.empty(d, dtype=torch.float32, device=dev) for d in widths]
+            if mode else None)
+    plan = plan or combine_plan(k, mode is not None)
+    lib = _library("combine")
+    with _device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for leaves, n, d_arr, first_arr in _launch_args(widths,
+                                                        plan.cols_per_block):
+            def ptrs(ts):
+                return None if ts is None else (_P * n)(
+                    *[ts[i].data_ptr() for i in leaves])
+            err = lib.combine_launch(
+                ptrs(xs), ptrs(ys), ptrs(reds), d_arr, first_arr, n,
+                w.data_ptr(), m, k, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
+                plan.rows_per_thread, plan.cols_per_block, stream)
+            _raise_on("combine", "combine_launch", err)
+            LAUNCHES["combine_reduce" if mode else "weighted_combine"] += 1
+    return ys, reds
 
 
 def weighted_combine(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (m, d) float32 or bfloat16, contiguous, w: (k, m), 1 <= m, k <= 64
     -> (k, d) float32 ``w @ x``, each output summed in row order."""
-    return _combine(x, w, None, 0, True, "weighted_combine")[0]
+    return _combine([x], w, None, 0, True, "weighted_combine")[0][0]
 
 
 def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str,
@@ -352,7 +479,23 @@ def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str,
     float32 by ``mode`` ("med", "tm" with ``trim`` clipped to
     [0, (k-1)//2], or "mean"), without writing ``w @ x``: one pass over x."""
     _check_mode(mode)
-    return _combine(x, w, mode, trim, False, "combine_reduce")[1]
+    return _combine([x], w, mode, trim, False, "combine_reduce")[1][0]
+
+
+def tree_weighted_combine(xs, w: torch.Tensor) -> list:
+    """``weighted_combine`` of every leaf of a tree in one launch (one per
+    ``COMBINE_MAX_LEAVES`` leaves): xs a list of contiguous (m, d_l) leaves
+    of one m, dtype and device -> one float32 output per leaf, (d_l,) at
+    k = 1 and (k, d_l) above it."""
+    return _combine(xs, w, None, 0, True, "tree_weighted_combine",
+                    keep_rows=False)[0]
+
+
+def tree_combine_reduce(xs, w: torch.Tensor, mode: str, trim: int = 0) -> list:
+    """``combine_reduce`` of every leaf of a tree in one launch (one per
+    ``COMBINE_MAX_LEAVES`` leaves) -> one (d_l,) float32 output per leaf."""
+    _check_mode(mode)
+    return _combine(xs, w, mode, trim, False, "tree_combine_reduce")[1]
 
 
 def fused_pass(x: torch.Tensor, *, w: Optional[torch.Tensor] = None,
@@ -381,13 +524,13 @@ def fused_pass(x: torch.Tensor, *, w: Optional[torch.Tensor] = None,
         if w is None:
             out["reduce"] = cw_reduce(x, reduce, int(trim))
         else:
-            y, red = _combine(x, w, reduce, trim, combine,
-                              "combine_reduce" if reduce else
-                              "weighted_combine")
+            ys, reds = _combine([x], w, reduce, trim, combine,
+                                "combine_reduce" if reduce else
+                                "weighted_combine")
             if reduce is not None:
-                out["reduce"] = red
+                out["reduce"] = reds[0]
             if combine:
-                out["combine"] = y
+                out["combine"] = ys[0]
     if pairwise:
         out["pairwise"] = pairwise_sqdist(x)
     return out

@@ -396,3 +396,217 @@ def test_rules_on_card_match_plain(cuda_device, name):
         {k: v.to(cuda_device) for k, v in stacked.items()})
     for k in shapes:
         torch.testing.assert_close(got[k].cpu(), want[k], **TOL)
+
+
+# ------------------------------------------------- combine.cu: one launch a tree
+
+# leaf widths: the main path's tree, one leaf, more leaves than one launch
+# takes (widths 1 to 97, some not a multiple of 4), and narrow odd widths
+TREES = {"main": (8192, 1280, 128, 10), "one": (777,),
+         "many": tuple(1 + (37 * i) % 97 for i in range(fused.COMBINE_MAX_LEAVES + 9)),
+         "odd": (1, 3, 5, 7, 13, 130, 0, 6)}
+
+
+def _leaves(m, widths, seed, dtype):
+    return [_stack(m, d, seed + i, dtype) for i, d in enumerate(widths)]
+
+
+def _tree_weights(k, m, seed):
+    return torch.from_numpy(np.random.default_rng(seed).random((k, m)).astype(
+        np.float32))
+
+
+def _launches_per_call(widths):
+    return -(-sum(1 for d in widths if d) // fused.COMBINE_MAX_LEAVES)
+
+
+@pytest.mark.parametrize("k,m", [(1, 17), (17, 17), (64, 64)])
+@pytest.mark.parametrize("tree", sorted(TREES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tree_combine_matches_plain_and_leaves(cuda_device, k, m, tree, dtype):
+    """A tree launch within 1e-5 of the plain version of every leaf, and
+    bitwise equal to one launch per leaf; launches counted per tree call."""
+    widths = TREES[tree]
+    xs = _leaves(m, widths, 100 + k, dtype)
+    xds = [x.to(cuda_device) for x in xs]
+    w = _tree_weights(k, m, k)
+    wd = w.to(cuda_device)
+    per_call = _launches_per_call(widths)
+    before = dict(fused.LAUNCHES)
+    got = fused.tree_weighted_combine(xds, wd)
+    assert fused.LAUNCHES["weighted_combine"] == before["weighted_combine"] + per_call
+    for x, xd, y in zip(xs, xds, got):
+        assert y.shape == ((x.shape[1],) if k == 1 else (k, x.shape[1]))
+        one = fused.weighted_combine(xd, wd)
+        assert torch.equal(y.reshape(one.shape), one)
+        torch.testing.assert_close(y.reshape(one.shape).cpu(),
+                                   kref.weighted_combine_ref(x, w), **TOL)
+    for mode, trim in [("med", 0), ("mean", 0), ("tm", 0), ("tm", 8),
+                       ("tm", (k - 1) // 2)]:
+        before = fused.LAUNCHES["combine_reduce"]
+        got = fused.tree_combine_reduce(xds, wd, mode, trim)
+        assert fused.LAUNCHES["combine_reduce"] == before + per_call
+        for x, xd, red in zip(xs, xds, got):
+            assert torch.equal(red, fused.combine_reduce(xd, wd, mode, trim))
+            torch.testing.assert_close(
+                red.cpu(), kref.combine_reduce_ref(x, w, mode, min(trim, (k - 1) // 2)),
+                **TOL)
+
+
+@pytest.mark.parametrize("k,m", [(1, 17), (17, 17), (64, 64), (5, 3)])
+def test_every_combine_plan_gives_the_same_bits(cuda_device, k, m):
+    """Every plan combine.cu takes (each instance of rows a thread, 32 to
+    256 columns a block) gives the default plan's bits, written y and
+    reduce in one pass too."""
+    xds = [x.to(cuda_device) for x in _leaves(m, TREES["odd"], 7, torch.float32)]
+    wd = _tree_weights(k, m, 3).to(cuda_device)
+    want = fused._combine(xds, wd, "tm", 1, True, "test")
+    tried = 0
+    for r in fused.COMBINE_ROWS:
+        for cols in (32, 64, 128, 256):
+            plan = fused.CombinePlan(r, cols)
+            if not fused.combine_plan_fits(plan, m, k):
+                continue
+            got = fused._combine(xds, wd, "tm", 1, True, "test", plan=plan)
+            for a, b in zip(got[0] + got[1], want[0] + want[1]):
+                assert torch.equal(a, b), plan
+            tried += 1
+    assert tried >= (1 if k > 32 else 3)  # above 32 only (8, 32) fits
+
+
+def test_tree_nan_and_outlier_on_card(cuda_device):
+    """A 1e30 row and a NaN in one leaf of the tree: the NaN column is NaN in
+    that leaf only, as the plain versions give it."""
+    xs = _leaves(17, TREES["main"], 9, torch.float32)
+    xs[1][0] = 1e30
+    xs[1][5, 3] = float("nan")
+    xds = [x.to(cuda_device) for x in xs]
+    w = torch.full((17, 17), 1.0 / 17)
+    for mode in fused.REDUCE_MODES:
+        got = fused.tree_combine_reduce(xds, w.to(cuda_device), mode, 8)
+        assert torch.isnan(got[1][3]) and not torch.isnan(got[0]).any()
+        for x, red in zip(xs, got):
+            torch.testing.assert_close(red.cpu(), kref.combine_reduce_ref(x, w, mode, 8),
+                                       equal_nan=True, **TOL)
+    ys = fused.tree_weighted_combine(xds, w.to(cuda_device))
+    assert torch.isnan(ys[1][:, 3]).all()
+
+
+def test_tree_unaligned_leaves_on_card(cuda_device):
+    """Leaves that start 1 element past a 16-byte boundary, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = _leaves(17, (8, 1280, 12), 11, dtype)
+        xds = []
+        for x in xs:
+            buf = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda_device)
+            xd = buf[1:].view(x.shape)
+            xd.copy_(x)
+            xds.append(xd)
+        w = _tree_weights(17, 17, 4)
+        got = fused.tree_combine_reduce(xds, w.to(cuda_device), "med")
+        for x, red in zip(xs, got):
+            torch.testing.assert_close(red.cpu(), kref.combine_reduce_ref(x, w, "med"),
+                                       **TOL)
+
+
+def _tree_calls(xds, w1, wm):
+    return (fused.tree_weighted_combine(xds, w1)
+            + fused.tree_weighted_combine(xds, wm)
+            + fused.tree_combine_reduce(xds, wm, "tm", 8))
+
+
+def test_tree_graph_replay_bitwise(cuda_device):
+    """A CUDA graph of three tree calls, replayed twice, gives the eager
+    calls' bits."""
+    xds = [x.to(cuda_device) for x in _leaves(17, TREES["main"], 12, torch.float32)]
+    w1 = _tree_weights(1, 17, 5).to(cuda_device)
+    wm = _tree_weights(17, 17, 6).to(cuda_device)
+    eager = _tree_calls(xds, w1, wm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _tree_calls(xds, w1, wm)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _tree_calls(xds, w1, wm)
+    for _ in range(2):
+        for out in captured:
+            out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
+def test_tree_two_streams(cuda_device):
+    """Tree calls running at once on two streams keep their bits."""
+    trees = [[x.to(cuda_device) for x in _leaves(17, TREES["main"], 20 + 4 * i,
+                                                  torch.float32)]
+             for i in range(2)]
+    w1 = _tree_weights(1, 17, 7).to(cuda_device)
+    wm = _tree_weights(17, 17, 8).to(cuda_device)
+    want = [_tree_calls(xds, w1, wm) for xds in trees]
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        outs = []
+        for s, xds in zip((s1, s2), trees):
+            with torch.cuda.stream(s):
+                outs.append([_tree_calls(xds, w1, wm) for _ in range(4)])
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert all(torch.equal(a, b) for calls in o for a, b in zip(calls, w))
+
+
+@pytest.mark.parametrize("tree", ["main", "many"])
+def test_tree_one_launch_per_call(cuda_device, tree):
+    """One CUDA kernel per tree call (two for a tree of more leaves than a
+    launch takes), for both tree forms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    widths = TREES[tree]
+    xds = [x.to(cuda_device) for x in _leaves(17, widths, 13, torch.float32)]
+    wm = _tree_weights(17, 17, 9).to(cuda_device)
+    for call in (lambda: fused.tree_weighted_combine(xds, wm[:1]),
+                 lambda: fused.tree_combine_reduce(xds, wm, "tm", 8)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == _launches_per_call(widths), [e.name for e in kernels]
+        assert all("combine_kernel" in e.name for e in kernels)
+
+
+def test_agg_engine_tree_forms_one_launch_on_card(cuda_device):
+    """agg_engine's tree forms on the kernel backend: one launch a call,
+    the leaves' shapes and dtypes, and the plain backend's values."""
+    rng = np.random.default_rng(14)
+    shapes = {"b1": (128,), "b2": (10,), "w1": (64, 128), "w2": (128, 10)}
+    stacked = {k: torch.from_numpy(rng.normal(size=(17,) + s).astype(np.float32))
+               for k, s in shapes.items()}
+    on_card = {k: v.to(cuda_device) for k, v in stacked.items()}
+    w1 = torch.full((17,), 1.0 / 17)
+    wm = _tree_weights(17, 17, 10)
+    before = dict(fused.LAUNCHES)
+    cases = [
+        (agg_engine.tree_weighted_combine(on_card, w1.to(cuda_device), backend="kernel"),
+         agg_engine.tree_weighted_combine(stacked, w1, backend="ref")),
+        (agg_engine.tree_weighted_combine(on_card, wm.to(cuda_device), backend="kernel"),
+         agg_engine.tree_weighted_combine(stacked, wm, backend="ref")),
+        (agg_engine.tree_combine_reduce(on_card, wm.to(cuda_device), mode="tm", trim=8,
+                                        backend="kernel"),
+         agg_engine.tree_combine_reduce(stacked, wm, mode="tm", trim=8, backend="ref"))]
+    assert fused.LAUNCHES["weighted_combine"] == before["weighted_combine"] + 2
+    assert fused.LAUNCHES["combine_reduce"] == before["combine_reduce"] + 1
+    for got, want in cases:
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].shape == want[key].shape
+            assert got[key].dtype == want[key].dtype
+            torch.testing.assert_close(got[key].cpu(), want[key], **TOL)
