@@ -2,13 +2,17 @@
 """Time the port's kernels on one CUDA card at the main path's shapes: the
 distance kernels of ``sqdist.cu`` (K3 ``pairwise_sqdist``, K6 ``cross_sqdist``
 at k = 1) at every leaf shape, beside them the other kernels (K1 ``cwtm`` at
-trim 8, K4 ``weighted_combine`` at k = 1, K5 ``combine_reduce`` at k = m,
-trim 8) at 17 x 8192, and the combines' tree forms over the main path's four
-leaves as the rules call them (``agg_engine.tree_weighted_combine`` at k = 1
-and k = m, ``agg_engine.tree_combine_reduce`` at trim 8).
+trim 8, K2 ``cwtm_masked`` where the tree reads its trim on the card, K4
+``weighted_combine`` at k = 1, K5 ``combine_reduce`` at k = m, trim 8) at
+17 x 8192, K1 also at 64 x 8192 and 17 x 2^20 (float32 and
+bfloat16), and the tree forms over the main path's four leaves as the rules
+call them (``agg_engine.tree_weighted_combine`` at k = 1 and k = m,
+``agg_engine.tree_combine_reduce`` at trim 8, and the coordinate-wise rules'
+``tree``: CWTM at trim 8, CWMed, Mean).
 
     python3 benchmarks_torch/time_kernels.py [--src DIR] [--label NAME]
-        [--sweep [sqdist,combine]] [--units LIST] [--cols LIST] [--reps N]
+        [--sweep [sqdist,combine,cw_reduce]] [--units LIST] [--cols LIST]
+        [--reps N]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that an older tree unpacked beside this one is timed by
@@ -26,8 +30,13 @@ combine`` times K4 (k = 1 and k = 17) and K5 (k = 17) over the main path's
 tree and over its widest leaf at every plan of ``combine.cu`` (rows a thread
 in ``COMBINE_ROWS``, ``--cols`` columns a block) and checks each against
 the default plan's bits: the measurement that chose ``combine_plan`` (the
-table in ``combine.cu``'s header). ``--sweep`` alone runs both. Float32
-inputs; each time is the median of ``--reps`` repeats.
+table in ``combine.cu``'s header). ``--sweep cw_reduce`` times K1 (trim 8)
+over the main path's tree, 17 x 8192, 64 x 8192 and 17 x 2^20 at every plan
+of ``cw_reduce.cu`` (lanes a column in ``CW_REDUCE_LANES``, ``--cols``
+columns a block) and checks each against the default plan's bits: the
+measurement that chose ``cw_reduce_plan`` (the table in ``cw_reduce.cu``'s
+header). ``--sweep`` alone runs all three. Float32 inputs unless a row says
+otherwise; each time is the median of ``--reps`` repeats.
 """
 import argparse
 import json
@@ -177,10 +186,50 @@ def sweep_combine(args, fused, kref, dev, smi, gen):
                         "nvidia_smi": smi}), flush=True)
 
 
+def sweep_cw_reduce(args, fused, kref, dev, smi, gen):
+    """K1 (trim 8) at every plan that ``cw_reduce.cu`` takes, over the main
+    path's four-leaf tree, 17 x 8192, 64 x 8192, and 17 x 2^16, 2^17, 2^18
+    and 2^20 in float32 and bfloat16; each plan checked bitwise against the
+    default."""
+    import torch
+    _, leaves = leaf_tree(gen, dev)
+    shapes = [(17, 8192, torch.float32), (64, 8192, torch.float32)] + [
+        (17, 1 << e, dtype) for e in (16, 17, 18, 20)
+        for dtype in (torch.float32, torch.bfloat16)]
+    cases = [("tree", leaves)] + [
+        (f"{m}x{d} {str(dtype).removeprefix('torch.')}",
+         [(torch.randn(m, d, generator=gen) * 1e-2).to(dtype).to(dev)])
+        for m, d, dtype in shapes]
+    for name, xs in cases:
+        m = xs[0].shape[0]
+        want = fused.tree_cw_reduce(xs, "tm", 8)
+        for lanes in fused.CW_REDUCE_LANES:
+            for cols in (int(c) for c in args.cols.split(",")):
+                plan = fused.CwReducePlan(lanes, cols)
+                if not fused.cw_reduce_plan_fits(plan, m):
+                    continue
+
+                def kern(xs=xs, plan=plan):
+                    return fused.tree_cw_reduce(xs, "tm", 8, plan=plan)
+                same = all(torch.equal(a, b) for a, b in zip(kern(), want))
+                blocks = sum(l.blocks for l in fused.tree_launches(
+                    tuple(x.shape[1] for x in xs), cols))
+                print(json.dumps({
+                    "phase": "sweep", "kernel": "cw_reduce", "m": m,
+                    "leaves": name, "d": sum(x.shape[1] for x in xs),
+                    "lanes": lanes, "cols_per_block": cols, "blocks": blocks,
+                    "default_plan": list(fused.cw_reduce_plan(m)),
+                    "bitwise_equal_default": same,
+                    "kernel_us": median_of(args.reps, kern, time_graph_us),
+                    "nvidia_smi": smi}), flush=True)
+
+
 def tree_rows(args, dev, smi, gen):
     """The main path's tree forms of K4 (k = 1, k = m) and K5 (k = m, trim
     8) through ``agg_engine`` on the kernel backend, as the rules call them,
-    beside one ``torch.mm`` per leaf; a digest of each result's bits."""
+    beside one ``torch.mm`` per leaf, and of K1 through the coordinate-wise
+    rules' ``tree`` (CWTM at trim 8 beside one ``torch.median`` per leaf,
+    CWMed, Mean); a digest of each result's bits."""
     import torch
     from repro_torch.core import agg_engine
     stacked, leaves = leaf_tree(gen, dev)
@@ -199,6 +248,13 @@ def tree_rows(args, dev, smi, gen):
          lambda: agg_engine.tree_combine_reduce(stacked, wm, mode="tm", trim=8,
                                                 backend="kernel"),
          None)]
+    for rule, library in [("cwtm", lambda: [torch.median(x, 0).values
+                                            for x in leaves]),
+                          ("cwmed", None), ("mean", None)]:
+        agg = agg_engine.get_aggregator(rule, delta=8 / 17 + 1e-3,
+                                        backend="kernel")
+        cases.append(("cw_reduce", rule, lambda agg=agg: agg.tree(stacked),
+                      library))
     for name, case, kern, library in cases:
         calls = repeats(args.reps, kern, time_calls_us)
         print(json.dumps({
@@ -219,7 +275,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--sweep", nargs="?", const="sqdist,combine", default="")
+    ap.add_argument("--sweep", nargs="?", const="sqdist,combine,cw_reduce",
+                    default="")
     ap.add_argument("--units", default="1,2,3,4,6,8,10,15,20,32,64,128")
     ap.add_argument("--cols", default="32,64,128,256")
     ap.add_argument("--reps", type=int, default=3)
@@ -238,7 +295,8 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     if args.sweep:
-        sweeps = {"sqdist": sweep_sqdist, "combine": sweep_combine}
+        sweeps = {"sqdist": sweep_sqdist, "combine": sweep_combine,
+                  "cw_reduce": sweep_cw_reduce}
         for which in args.sweep.split(","):
             sweeps[which](args, fused, kref, dev, smi, gen)
         return
@@ -250,6 +308,7 @@ def main():
                  ("cross_sqdist", lambda: fused.cross_sqdist(x, z),
                   lambda: torch.cdist(x, z).square_())]
         if d == 8192:
+            t_dev = torch.tensor(8, dtype=torch.int32, device=dev)
             w1 = torch.full((1, m), 1.0 / m, device=dev)
             wm = torch.rand(m, m, generator=gen).to(dev)
             wm /= wm.sum(1, keepdim=True)
@@ -258,6 +317,9 @@ def main():
                        lambda: torch.mm(w1, x)),
                       ("combine_reduce",
                        lambda: fused.combine_reduce(x, wm, "tm", 8), None)]
+            if hasattr(fused, "tree_cw_reduce"):  # the trim read on the card
+                cases.append(("cw_reduce masked",
+                              lambda: fused.cwtm_masked(x, t_dev), None))
         for name, kern, library in cases:
             calls = repeats(args.reps, kern, time_calls_us)
             print(json.dumps({
@@ -271,6 +333,17 @@ def main():
                 "library_call_us": (median_of(args.reps, library, time_calls_us)
                                     if library else None),
                 "nvidia_smi": smi}), flush=True)
+    for m, d, dtype in [(64, 8192, torch.float32), (17, 1 << 20, torch.float32),
+                        (17, 1 << 20, torch.bfloat16)]:
+        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dtype).to(dev)
+        print(json.dumps({
+            "phase": "calls", "label": args.label, "kernel": "cw_reduce",
+            "m": m, "d": d, "dtype": str(dtype).removeprefix("torch."),
+            "kernel_us": median_of(args.reps, lambda: fused.cwtm(x, 8),
+                                   time_graph_us),
+            "library_us": median_of(args.reps, lambda: torch.median(x, 0),
+                                    time_graph_us),
+            "nvidia_smi": smi}), flush=True)
     tree_rows(args, dev, smi, gen)
 
 

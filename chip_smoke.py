@@ -17,20 +17,27 @@ sources there (``nvcc``, one process per source, all started together, into
      2e-6 after dividing by the larger of the largest distance and the
      largest squared row norm;
      Then holds the tree launches of ``combine.cu`` (``tree_weighted_combine``,
-     ``tree_combine_reduce``) against the plain version of every leaf at
-     1e-5 and bitwise against one launch per leaf: k in {1, 17, 64}, every
-     reduce mode, both dtypes, the main path's four-leaf tree, one leaf, more
-     leaves than a launch takes, and widths of 1 and not a multiple of 4;
+     ``tree_combine_reduce``) and of ``cw_reduce.cu`` (``tree_cw_reduce``,
+     with the trim a value and an int32 on the card) against the plain
+     version of every leaf at 1e-5 and bitwise against one launch per leaf:
+     k in {1, 17, 64} and m in {2, 17, 33, 64}, every reduce mode, both
+     dtypes, the main path's four-leaf tree, one leaf, more leaves than a
+     launch takes, and widths of 1 and not a multiple of 4; and every plan
+     of ``cw_reduce.cu`` against the default plan's bits;
   3. runs one ``pairwise_sqdist`` and one ``cross_sqdist`` call at 17 x 8192
-     and at 17 x 10, and one call of each tree form of ``combine.cu`` over
-     the main path's four leaves, under ``torch.profiler`` and fails unless
-     each call is exactly one CUDA kernel on the card;
+     and at 17 x 10, and one call of each tree form of ``combine.cu`` and of
+     ``tree_cw_reduce`` over the main path's four leaves, under
+     ``torch.profiler`` and fails unless each call is exactly one CUDA
+     kernel on the card; then calls ``cwtm_masked`` with the trim on the
+     card under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync)
+     and replays a captured CUDA graph of it after changing the trim in
+     place;
   4. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
      setting (m=17, 8 Byzantine, sign_flip under Periodic(10), CWTM at trim
      8, T=150, sgd(0.1), the 64-128-10 Gaussian-mixture MLP at full width)
      through ``make_task`` / ``run_dynabro`` with the default backend, and
-     checks the test accuracy, the kernel's launch count, and a second run on
-     the plain backend;
+     checks the test accuracy, the kernel's launch count (one tree call an
+     aggregation), and a second run on the plain backend;
   5. trains the same setting with each geometry rule: NNM+CWTM, MFM
      (Option 2, adagrad_norm(0.5)), Krum and GeoMed (8 Weiszfeld steps), on
      the default backend and on the plain one, and checks every kernel's
@@ -39,7 +46,9 @@ sources there (``nvcc``, one process per source, all started together, into
      MFM's filter) differs between the two;
   6. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
-     card's bound; the combines also over the main path's four-leaf tree;
+     card's bound; the tree kernels also over the main path's four-leaf
+     tree (``cw_reduce`` beside one launch per leaf), and ``cw_reduce`` also
+     at 64 x 8192 and at 17 x 2^20 in float32 and bfloat16;
   7. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -260,7 +269,7 @@ def check_geometry_kernels(dev):
 TREE_CHECKS = {
     "main": [d for _, d in LEAF_SHAPES],
     "one": [9610],
-    "many": [1 + (37 * i) % 97 for i in range(fused.COMBINE_MAX_LEAVES + 9)],
+    "many": [1 + (37 * i) % 97 for i in range(fused.MAX_LEAVES + 9)],
     "odd": [1, 3, 5, 7, 13, 130, 6, 1282],
 }
 
@@ -274,7 +283,7 @@ def check_tree_kernels(dev):
     worst = {"weighted_combine": 0.0, "combine_reduce": 0.0}
     n = 0
     for tree, widths in TREE_CHECKS.items():
-        per_call = -(-len(widths) // fused.COMBINE_MAX_LEAVES)
+        per_call = -(-len(widths) // fused.MAX_LEAVES)
         for k, m in [(1, M), (M, M), (64, 64)]:
             x32 = [torch.randn(m, d, generator=gen) * 3.0 for d in widths]
             w = torch.rand(k, m, generator=gen).to(dev)
@@ -308,12 +317,102 @@ def check_tree_kernels(dev):
     return worst, n
 
 
+CW_TREE_M = (2, 17, 33, 64)
+
+
+def check_cw_tree_kernels(dev):
+    """tree_cw_reduce against the plain version of every leaf (within TOL)
+    and against one launch per leaf (bit for bit), in every mode, with the
+    trim a value and an int32 on the card, with its launch counts; then
+    every plan of ``cw_reduce.cu`` against the default plan's bits. Returns
+    the largest error and the number of comparisons."""
+    gen = torch.Generator().manual_seed(6)
+    worst, n = 0.0, 0
+    for tree, widths in TREE_CHECKS.items():
+        per_call = -(-len(widths) // fused.MAX_LEAVES)
+        for m in CW_TREE_M:
+            x32 = [torch.randn(m, d, generator=gen) * 3.0 for d in widths]
+            t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+            cases = ([("med", 0), ("mean", 0)]
+                     + [("tm", t) for t in sorted({0, 2, TRIM, (m - 1) // 2})]
+                     + [("tm", t_dev)])
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = [x.to(dtype).to(dev) for x in x32]
+                for mode, trim in cases:
+                    tag = (f"tree={tree} m={m} {dtype} {mode} trim={int(trim)}"
+                           f"{' on the card' if torch.is_tensor(trim) else ''}")
+                    before = LAUNCHES["cw_reduce"]
+                    outs = fused.tree_cw_reduce(xs, mode, trim)
+                    assert LAUNCHES["cw_reduce"] == before + per_call, tag
+                    for x, out in zip(xs, outs):
+                        assert torch.equal(out, fused.cw_reduce(x, mode, trim)), \
+                            f"tree vs leaf {tag}"
+                        worst = max(worst, check(out, kref.cw_reduce_ref(x, mode, trim),
+                                                 f"tree cw_reduce {tag}"))
+                        n += 1
+    for m in (M, 64):
+        xs = [(torch.randn(m, d, generator=gen) * 3.0).to(dev)
+              for d in TREE_CHECKS["odd"] + TREE_CHECKS["main"]]
+        for mode in fused.REDUCE_MODES:
+            want = fused.tree_cw_reduce(xs, mode, TRIM)
+            for lanes in fused.CW_REDUCE_LANES:
+                for cols in (16, 32, 64, 128, 256):
+                    plan = fused.CwReducePlan(lanes, cols)
+                    if not fused.cw_reduce_plan_fits(plan, m):
+                        continue
+                    got = fused.tree_cw_reduce(xs, mode, TRIM, plan=plan)
+                    assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                        f"plan {plan} m={m} {mode}"
+                    n += 1
+    torch.cuda.synchronize()
+    return worst, n
+
+
+def check_device_trim(dev):
+    """``cwtm_masked`` with the trim an int32 on the card: no host sync
+    (``set_sync_debug_mode("error")`` raises on one), and a captured CUDA
+    graph of tree calls that replays with the trim changed in place."""
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn(M, 9610, generator=gen) * 3.0).to(dev)
+    xs = [(torch.randn(m, d, generator=gen) * 3.0).to(dev) for m, d in LEAF_SHAPES]
+    t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+    fused.cwtm_masked(x, t_dev)  # warm: the library is loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fused.cwtm_masked(x, t_dev)
+        tree = fused.tree_cw_reduce(xs, "tm", t_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, fused.cwtm(x, TRIM)), "device trim vs value"
+    for a, b in zip(tree, fused.tree_cw_reduce(xs, "tm", TRIM)):
+        assert torch.equal(a, b), "device trim vs value, tree"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused.tree_cw_reduce(xs, "tm", t_dev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused.tree_cw_reduce(xs, "tm", t_dev)
+    replays = 0
+    for trim in (TRIM, 0, 3, 100, -2, TRIM):
+        t_dev.fill_(trim)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, x in zip(captured, xs):
+            assert torch.equal(got, fused.cwtm(x, trim)), f"replay at trim {trim}"
+        replays += 1
+    emit({"phase": "device_trim", "sync_free": True, "graph_replays": replays,
+          "trims": [TRIM, 0, 3, 100, -2, TRIM], "bitwise_equal_value_trim": True})
+
+
 def device_kernels_per_call(dev):
     """How many CUDA kernels one call of each distance kernel puts on the
     card, by ``torch.profiler``, at the main path's widest and narrowest
     leaves (a many-block and a one-block plan), and one call of each tree
-    form of ``combine.cu`` over the main path's four leaves. Fails unless
-    each is 1."""
+    form of ``combine.cu`` and of ``tree_cw_reduce`` over the main path's
+    four leaves. Fails unless each is 1."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator().manual_seed(4)
@@ -330,6 +429,10 @@ def device_kernels_per_call(dev):
     calls["tree_weighted_combine k=m"] = lambda: fused.tree_weighted_combine(leaves, wm)
     calls["tree_combine_reduce k=m tm"] = lambda: fused.tree_combine_reduce(
         leaves, wm, "tm", TRIM)
+    t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+    calls["tree_cw_reduce tm"] = lambda: fused.tree_cw_reduce(leaves, "tm", TRIM)
+    calls["tree_cw_reduce tm, trim on the card"] = lambda: fused.tree_cw_reduce(
+        leaves, "tm", t_dev)
     for key, call in calls.items():
         call()  # warm: the library and the counters exist before the window
         torch.cuda.synchronize()
@@ -376,7 +479,8 @@ def main_path(dev):
 
     j_max = cfg.mlmc.j_max
     levels = [l.level for l in logs]
-    expected = sum(12 if 1 <= j <= j_max else 4 for j in levels)
+    # one tree call an aggregation: 3 a round in the cap, 1 beyond it
+    expected = sum(3 if 1 <= j <= j_max else 1 for j in levels)
     acc = evals[-1][1]["test_acc"]
     diff = max(float((params[k] - ref_params[k]).abs().max()) for k in params)
     rerun = max(float((ref_params2[k] - ref_params[k]).abs().max())
@@ -384,7 +488,7 @@ def main_path(dev):
     for k in params:
         assert params[k].shape == params0[k].shape, k
         assert bool(torch.isfinite(params[k]).all()), f"non-finite {k}"
-    assert launches == expected == 1760, (launches, expected)
+    assert launches == expected == 440, (launches, expected)
     assert ref_launches == 0, ref_launches
     assert [vars(l) for l in logs] == [vars(l) for l in ref_logs], "logs differ"
     assert [vars(l) for l in ref_logs2] == [vars(l) for l in ref_logs]
@@ -623,46 +727,62 @@ def bound_us(m, d, itemsize):
     return bound_from(m * d * itemsize + 4 * d, d * (sort_ops(m) + m))
 
 
+CW_SHAPES = ([(m, d, torch.float32) for m, d in LEAF_SHAPES]
+             + [(M, 9610, torch.float32), (64, 8192, torch.float32),
+                (M, 1 << 20, torch.float32), (M, 1 << 20, torch.bfloat16)])
+
+
 def timing(dev):
-    """Each kernel at the main path's shapes, beside its plain version and,
-    where one exists, a PyTorch call computing the same function. ``*_us``
-    is device time per call (CUDA graph replay); ``*_call_us`` is the time
-    per call issued back to back from Python."""
+    """``cw_reduce`` at the main path's shapes, at 64 x 8192 and at 17 x
+    2^20, beside its plain version and, for the median, ``torch.median``;
+    ``*_us`` is device time per call (CUDA graph replay); ``*_call_us`` is
+    the time per call issued back to back from Python. The masked form reads
+    its trim on the card, in the graph too."""
     gen = torch.Generator().manual_seed(1)
-    t_host = torch.tensor(TRIM, dtype=torch.int32)
-    t_dev = t_host.to(dev)
+    t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
     rows = {}
-    for m, d in LEAF_SHAPES + [(M, 9610)]:
-        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dev)
-        b_us, b_by = bound_us(m, d, 4)
-        # mode: (kernel under graph capture, kernel per call, plain, library);
-        # a trim tensor on the card is read back per call, which a capture
-        # cannot do, so the captured masked call gets it from the host
+    for m, d, dtype in CW_SHAPES:
+        x = (torch.randn(m, d, generator=gen) * 1e-2).to(dtype).to(dev)
+        b_us, b_by = bound_us(m, d, x.element_size())
+        # mode: (kernel, plain, library)
         cases = {
-            "tm": (lambda: fused.cwtm(x, TRIM), lambda: fused.cwtm(x, TRIM),
-                   lambda: kref.cwtm_ref(x, TRIM), None),
-            "tm_masked": (lambda: fused.cwtm_masked(x, t_host),
-                          lambda: fused.cwtm_masked(x, t_dev),
+            "tm": (lambda: fused.cwtm(x, TRIM), lambda: kref.cwtm_ref(x, TRIM),
+                   None),
+            "tm_masked": (lambda: fused.cwtm_masked(x, t_dev),
                           lambda: kref.cwtm_ref(x, t_dev), None),
-            "med": (lambda: fused.cwmed(x), lambda: fused.cwmed(x),
-                    lambda: kref.cwmed_ref(x),
+            "med": (lambda: fused.cwmed(x), lambda: kref.cwmed_ref(x),
                     lambda: torch.median(x, 0).values),
         }
-        for mode, (kern, kern_call, plain, library) in cases.items():
+        for mode, (kern, plain, library) in cases.items():
             row = {"phase": "timing", "kernel": "cw_reduce", "mode": mode,
                    "trim": None if mode == "med" else TRIM, "m": m, "d": d,
-                   "dtype": "float32",
-                   "max_abs_err": max_abs_err(kern_call(), plain()),
+                   "dtype": str(dtype).removeprefix("torch."),
+                   "max_abs_err": max_abs_err(kern(), plain()),
                    "kernel_us": time_graph_us(kern),
-                   "kernel_call_us": time_calls_us(kern_call),
+                   "kernel_call_us": time_calls_us(kern),
                    "plain_us": time_graph_us(plain),
                    "plain_call_us": time_calls_us(plain),
                    # no single PyTorch call computes a trimmed mean
                    "library_us": time_graph_us(library) if library else None,
                    "library_call_us": time_calls_us(library) if library else None,
                    "bound_us": b_us, "bound_by": b_by}
+            row["bound_share"] = b_us / row["kernel_us"]
             emit(row)
-            rows[(mode, m, d)] = row
+            rows[(mode, m, d, row["dtype"])] = row
+    xs = [(torch.randn(m, d, generator=gen) * 1e-2).to(dev) for m, d in LEAF_SHAPES]
+    d_all = sum(d for _, d in LEAF_SHAPES)
+    nbytes = sum(m * d * 4 + 4 * d for m, d in LEAF_SHAPES)
+    ops = sum(d * (sort_ops(m) + m) for m, d in LEAF_SHAPES)
+    plain = [lambda: [kref.cwtm_ref(x, TRIM) for x in xs]]
+    library = [lambda: [torch.median(x, 0).values for x in xs]]
+    # at trim (m-1)/2 of odd m the trimmed mean keeps only the middle row,
+    # so torch.median computes the same function
+    for case, kern in [
+            ("tm tree", lambda: fused.tree_cw_reduce(xs, "tm", TRIM)),
+            ("tm_masked tree", lambda: fused.tree_cw_reduce(xs, "tm", t_dev)),
+            ("tm per leaf", lambda: [fused.cwtm(x, TRIM) for x in xs])]:
+        rows[(case, M, d_all)] = time_case("cw_reduce", case, M, d_all, kern,
+                                           *plain, *library, nbytes, ops)
     return rows
 
 
@@ -845,7 +965,15 @@ def main():
           "comparisons": tree_checks, "max_abs_err": tree_worst,
           "bitwise_equal_per_leaf_launches": True, "tolerance": TOL})
 
+    cw_tree_worst, cw_tree_checks = check_cw_tree_kernels(dev)
+    emit({"phase": "kernel_check", "kernel": "tree_cw_reduce",
+          "trees": {k: len(v) for k, v in TREE_CHECKS.items()}, "m": CW_TREE_M,
+          "comparisons": cw_tree_checks, "max_abs_err": cw_tree_worst,
+          "bitwise_equal_per_leaf_launches": True,
+          "bitwise_equal_every_plan": True, "tolerance": TOL})
+
     device_kernels_per_call(dev)
+    check_device_trim(dev)
 
     launches = main_path(dev)
     task = make_task(M, seed=0, device=dev)
@@ -861,16 +989,16 @@ def main():
     def launches_of(kernel):
         return {path: c[kernel] for path, c in by_path.items() if c.get(kernel)}
 
-    main_row = rows[("tm", M, 8192)]
-    med_row = rows[("med", M, 8192)]
+    d_all = sum(d for _, d in LEAF_SHAPES)
+    tree_row = rows[("tm tree", M, d_all)]
     entries = [kernel_entry(
         "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
         "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
-        max([worst] + [r["max_abs_err"] for r in rows.values()]), main_row,
-        # at trim (m-1)/2 of odd m the trimmed mean keeps only the middle
-        # row, so torch.median computes the same function
-        med_row, "torch.median(x, 0)", shape=[M, 8192], mode="tm", trim=TRIM)]
-    d_all = sum(d for _, d in LEAF_SHAPES)
+        max([worst, cw_tree_worst] + [r["max_abs_err"] for r in rows.values()]),
+        tree_row, tree_row, "torch.median(x, 0) per leaf",
+        shape=[[m, d] for m, d in LEAF_SHAPES], case="tm tree", trim=TRIM,
+        per_leaf_ms=rows[("tm per leaf", M, d_all)]["kernel_us"] / 1e3,
+        masked_ms=rows[("tm_masked tree", M, d_all)]["kernel_us"] / 1e3)]
     for name, case, replaces, path, library in [
             ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
              "nnm+cwtm", "torch.cdist(x, x).square_()"),

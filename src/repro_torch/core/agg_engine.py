@@ -19,7 +19,8 @@ CPU, and the H100's is to be set from the kernel and plain times in PERF.md.
 Rules stream leaf by leaf in sorted key order (the JAX package's
 ``jax.tree.leaves`` order); only the (m, m) distance statistics are global,
 and none materializes the flat (m, d_total) matrix. On the kernel backend
-the combine forms take every leaf of a tree in one launch.
+the coordinate-wise reduce and the combine forms take every leaf of a tree
+in one launch.
 """
 from __future__ import annotations
 
@@ -78,11 +79,10 @@ def cw_median(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
 def cw_trimmed_mean(x: torch.Tensor, trim, *,
                     backend: str = "auto") -> torch.Tensor:
     """(m, d) -> (d,) mean after dropping ``trim`` lowest/highest per
-    coordinate. ``trim`` is an int or an integer tensor."""
+    coordinate. ``trim`` is an int or an integer tensor (on the kernel
+    backend one on the card is read there, with no host sync)."""
     if dispatch_backend(backend, x) == "kernel":
-        if isinstance(trim, torch.Tensor):
-            return kfused.cwtm_masked(x, trim)
-        return kfused.cwtm(x, int(trim))
+        return kfused.cw_reduce(x, "tm", trim)
     return kref.cwtm_ref(x, trim)
 
 
@@ -128,12 +128,33 @@ def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str, trim=0, *,
 # ------------------------------------------------------------ tree forms
 #
 # Leaves carry a leading worker axis m; primitives stream per leaf, in
-# sorted key order (the combines as one launch over the leaves' list).
+# sorted key order (the reduce and the combines as one launch over the
+# leaves' list).
 
 
 def _as_mat(l: torch.Tensor) -> torch.Tensor:
     """A worker-stacked leaf (m, ...) as a contiguous (m, d) float32 matrix."""
     return l.reshape(l.shape[0], -1).to(torch.float32).contiguous()
+
+
+def tree_cw_reduce(stacked: Tree, mode: str, trim=0, *,
+                   backend: str = "auto") -> Tree:
+    """Per-leaf coordinate-wise reduce by ``mode`` ("med", "tm" with
+    ``trim``, an int or an integer tensor clipped to [0, (m-1)//2], or
+    "mean"), returning a dict shaped like one worker's entry. One kernel
+    launch for the whole tree on the kernel backend
+    (``kernels/fused.tree_cw_reduce``), a plain reduce per leaf on the ref
+    backend."""
+    keys = sorted(stacked)
+    if not keys:
+        return {}
+    mats = [_as_mat(stacked[k]) for k in keys]
+    if dispatch_backend(backend, mats[0]) == "kernel":
+        outs = kfused.tree_cw_reduce(mats, mode, trim)
+    else:
+        outs = [kref.cw_reduce_ref(x, mode, trim) for x in mats]
+    return {k: o.reshape(stacked[k].shape[1:]).to(stacked[k].dtype)
+            for k, o in zip(keys, outs)}
 
 
 def tree_pairwise_sqdist(stacked: Tree, *, backend: str = "auto") -> torch.Tensor:
@@ -216,17 +237,25 @@ class Aggregator:
 
 
 class CoordinateWiseRule(Aggregator):
-    """Rules that reduce each coordinate independently (Mean / CWMed / CWTM)."""
+    """Rules that reduce each coordinate independently (Mean / CWMed / CWTM)
+    by the reduce ``cr_mode`` ("mean", "med" or "tm") at ``trim(m)``: one
+    ``tree_cw_reduce`` over the tree."""
 
-    def _reduce(self, mat: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+    cr_mode: Optional[str] = None  # set by each rule
+
+    def trim(self, m: int) -> int:
+        """Rows dropped at each end of m (the trimmed mean's)."""
+        return 0
 
     def leaf(self, l: torch.Tensor) -> torch.Tensor:
-        out = self._reduce(_as_mat(l))
-        return out.reshape(l.shape[1:]).to(l.dtype)
+        return self.tree({"leaf": l})["leaf"]
 
     def tree(self, stacked: Tree) -> Tree:
-        return {k: self.leaf(stacked[k]) for k in sorted(stacked)}
+        if not stacked:
+            return {}
+        m = next(iter(stacked.values())).shape[0]
+        return tree_cw_reduce(stacked, self.cr_mode, self.trim(m),
+                              backend=self.backend)
 
 
 class GeometryRule(Aggregator):

@@ -2,7 +2,8 @@
 rules of the JAX package's ``core/aggregators.py``. ``agg.tree(stacked)``
 reduces every leaf (leading worker axis m) to one worker's shape.
 
-Coordinate-wise rules (Mean/CWMed/CWTM) apply leaf by leaf. Distance-based
+Coordinate-wise rules (Mean/CWMed/CWTM) reduce every leaf, in one launch
+for the tree on the kernel backend. Distance-based
 rules (Krum/GeoMed/NNM/MFM) compute the *global* pairwise distances by
 summing per-leaf contributions, turn them into per-worker weights on the
 device, then combine per leaf; no rule materializes the flat (m, d_total)
@@ -23,10 +24,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.agg_engine import (
-    Aggregator, CoordinateWiseRule, GeometryRule, Tree, count_ceil, cw_mean,
-    cw_median, cw_trimmed_mean, pairwise_sqdist, register,
-    tree_combine_reduce, tree_cross_sqdist, tree_pairwise_sqdist,
-    tree_weighted_combine, trim_count,
+    Aggregator, CoordinateWiseRule, GeometryRule, Tree, count_ceil,
+    pairwise_sqdist, register, tree_combine_reduce, tree_cross_sqdist,
+    tree_pairwise_sqdist, tree_weighted_combine, trim_count,
 )
 
 __all__ = ["Mean", "CWMed", "CWTM", "Krum", "GeoMed", "NNM", "MFM", "KAPPA",
@@ -141,19 +141,13 @@ def _geomed_tree(stacked: Tree, iters: int, eps: float, backend: str) -> Tree:
 
 class Mean(CoordinateWiseRule):
     name = "mean"
-    cr_mode = "mean"  # combine_reduce mode: NNM fuses mix+reduce for us
-
-    def _reduce(self, mat):
-        return cw_mean(mat, backend=self.backend)
+    cr_mode = "mean"  # the reduce mode, also NNM's fused mix+reduce
 
 
 class CWMed(CoordinateWiseRule):
     """Coordinate-wise median (Yin et al., 2018)."""
     name = "cwmed"
     cr_mode = "med"
-
-    def _reduce(self, mat):
-        return cw_median(mat, backend=self.backend)
 
 
 class CWTM(CoordinateWiseRule):
@@ -165,9 +159,8 @@ class CWTM(CoordinateWiseRule):
         super().__init__(backend)
         self.delta = delta
 
-    def _reduce(self, mat):
-        return cw_trimmed_mean(mat, trim_count(self.delta, mat.shape[0]),
-                               backend=self.backend)
+    def trim(self, m: int) -> int:
+        return trim_count(self.delta, m)
 
 
 class Krum(GeometryRule):
@@ -223,12 +216,11 @@ class NNM(GeometryRule):
     def tree(self, stacked):
         d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
         w = self._weights(d2)
-        mode = getattr(self.base, "cr_mode", None)
-        if mode is not None:
+        if isinstance(self.base, CoordinateWiseRule):
             # coordinate-wise base: mix+reduce as one primitive, the (m, d)
             # mixed stack never written (agg_engine.combine_reduce)
-            trim = trim_count(self.base.delta, d2.shape[0]) if mode == "tm" else 0
-            return tree_combine_reduce(stacked, w, mode=mode, trim=trim,
+            return tree_combine_reduce(stacked, w, mode=self.base.cr_mode,
+                                       trim=self.base.trim(d2.shape[0]),
                                        backend=self.backend)
         mixed = tree_weighted_combine(stacked, w, backend=self.backend)
         return self.base.tree(mixed)

@@ -23,14 +23,12 @@
 // of the card's f32 rate over its memory rate.
 //
 // Design.
-//  * One launch per tree. The caller passes host arrays of the leaves'
-//    pointers, widths and outputs and the first block of each leaf
-//    (kernels/fused.py::combine_launches); combine_launch checks them and
-//    copies them into a LeafTable that goes to the kernel by value, as a
-//    __grid_constant__ parameter. Nothing is copied to the card before the
-//    launch, so it can be captured in a CUDA graph. Blocks are numbered over
-//    the leaves in order, leaf l taking ceil(d_l / C) blocks of C columns;
-//    a block finds its leaf by walking the table's first blocks.
+//  * One launch per tree, through the leaf table of leaf_table.cuh (shared
+//    with cw_reduce.cu): host arrays of the leaves' pointers, widths and
+//    first blocks (kernels/fused.py::tree_launches) copied into a table that
+//    goes to the kernel by value, as a __grid_constant__ parameter, so the
+//    launch can be captured in a CUDA graph. Leaf l takes ceil(d_l / C)
+//    blocks of C columns; a block finds its leaf by walking the table.
 //  * Enough blocks to fill the card: C = 32 or 64 columns a block, so the
 //    main path's four leaves take 151 blocks (k = 1) or 301 (k = 17) on 132
 //    SMs, where the one-leaf kernel ran 32 blocks of 256 threads over
@@ -105,20 +103,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstddef>
 
+#include "leaf_table.cuh"
 #include "sort_network.cuh"
 
 namespace {
 
+using leaftab::Leaf;
+using leaftab::LeafTable;
 using sortnet::kMaxLog2Rows;
 using sortnet::kMean;
 using sortnet::kTrimmed;
 using sortnet::to_float;
 
 constexpr int kMaxRows = 1 << kMaxLog2Rows;
-constexpr int kMaxLeaves = 32;
 constexpr int kWarp = 32;
 constexpr int kMaxSmem = 48 * 1024;  // no opt-in to more dynamic shared memory
 constexpr int kStageLoads = 32;      // rows of x a thread loads in one round
@@ -128,19 +127,6 @@ constexpr int kNoReduce = -1;
 // Threads a block may have when the sort holds 2^LOG2_NP2 values: 128
 // registers a thread (the staged x, the accumulators, the sort), 255 for 64.
 constexpr int max_threads(int log2_np2) { return log2_np2 >= 6 ? 256 : 512; }
-
-struct Leaf {
-  const void* x;  // (m, d) row-major
-  float* y;       // (k, d) row-major, or null
-  float* out;     // (d,), or null
-  int d;
-  int first_block;
-};
-
-struct LeafTable {
-  Leaf leaf[kMaxLeaves];
-  int n;
-};
 
 // Rows i0, i0 + S, ... < m of column `col` of x, at most kStageLoads of
 // them, as float32 (0 where the column is past d). Returns how many.
@@ -189,9 +175,7 @@ __global__ void __launch_bounds__(max_threads(LOG2_NP2))
   float* xs = ws + groups * R * m4;            // max(m, NP2) rows of cols
 
   const int b = blockIdx.x;
-  int l = 0;
-  while (l + 1 < tab.n && tab.leaf[l + 1].first_block <= b) ++l;
-  const Leaf& leaf = tab.leaf[l];
+  const Leaf& leaf = leaftab::find_leaf(tab, b);
   const int d = leaf.d;
   const int t = threadIdx.x;
   const int c = t & (cols - 1);     // cols is a power of two
@@ -391,9 +375,7 @@ extern "C" int combine_launch(const void* const* x, void* const* y,
                               int rows_per_thread, int cols_per_block,
                               void* stream) {
   const bool reduce = mode != kNoReduce;
-  if (n < 1 || n > kMaxLeaves || x == nullptr || d == nullptr ||
-      first_block == nullptr || w == nullptr || m < 1 || m > kMaxRows ||
-      k < 1 || k > kMaxRows ||
+  if (w == nullptr || m < 1 || m > kMaxRows || k < 1 || k > kMaxRows ||
       (mode != kNoReduce && mode != kTrimmed && mode != kMean) ||
       (reduce ? out == nullptr : y == nullptr) || trim < 0 ||
       (mode == kTrimmed && 2 * trim >= k) || rows_per_thread < 1 ||
@@ -413,21 +395,10 @@ extern "C" int combine_launch(const void* const* x, void* const* y,
       smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LeafTable tab{};
-  tab.n = n;
-  long long blocks = 0;
-  for (int l = 0; l < n; ++l) {
-    if (x[l] == nullptr || d[l] < 1 || first_block[l] != blocks ||
-        (y != nullptr && y[l] == nullptr) ||
-        (reduce && out[l] == nullptr)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    tab.leaf[l] = {x[l], y ? static_cast<float*>(y[l]) : nullptr,
-                   reduce ? static_cast<float*>(out[l]) : nullptr, d[l],
-                   first_block[l]};
-    blocks += (d[l] + cols_per_block - 1) / cols_per_block;
-    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  LeafTable tab;
+  const long long blocks = leaftab::fill_table(
+      tab, x, y, reduce ? out : nullptr, d, first_block, n, cols_per_block);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* wf = static_cast<const float*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = static_cast<int>(blocks);

@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA kernels of ``csrc/``:
 
-  * ``cw_reduce.cu``: the coordinate-wise reduce (``cw_reduce``, ``cwmed``,
-    ``cwtm``, ``cwtm_masked``), each column of an (m, d) stack sorted across
-    its m rows and reduced to one float32;
+  * ``cw_reduce.cu``: the coordinate-wise reduce, each column of an (m, d)
+    stack sorted across its m rows and reduced to one float32, over every
+    leaf of a parameter tree in one launch (``tree_cw_reduce``; ``cw_reduce``,
+    ``cwmed``, ``cwtm`` and ``cwtm_masked`` are its one-leaf forms), with the
+    trim a value or an int32 on the card that the kernel reads;
   * ``sqdist.cu``: the (m, m) pairwise squared distances
     (``pairwise_sqdist``) and the (m, k) cross squared distances
     (``cross_sqdist``);
@@ -42,7 +44,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP, _IP = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _SIGNATURES = {
-    "cw_reduce": {"cw_reduce_launch": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "cw_reduce": {"cw_reduce_launch": [_PP, _PP, _IP, _IP] + [_I] * 5
+                  + [_P, _I, _I, _P]},
     "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _P] + [_I] * 5 + [_P],
                "cross_sqdist_launch": [_P] * 5 + [_I] * 6 + [_P]},
     "combine": {"combine_launch": [_PP, _PP, _PP, _IP, _IP] + [_I, _P]
@@ -73,17 +76,6 @@ def _raise_on(name: str, fn: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{fn} failed: "
                            f"{getattr(_library(name), f'{name}_error_string')(err).decode()}")
-
-
-def _call(name: str, fn: str, *args) -> None:
-    """Call ``fn`` of library ``name`` on PyTorch's current stream of the
-    first tensor's device and raise on the returned ``cudaError_t``."""
-    lib = _library(name)
-    dev = args[0].device
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with _device_guard(dev):
-        err = getattr(lib, fn)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(name, fn, err)
 
 
 def _check_stack(x: torch.Tensor, what: str, rows: str = "rows"):
@@ -124,7 +116,7 @@ def _clip_trim(mode: Optional[str], trim, k: int) -> int:
     if mode == "med":
         return (k - 1) // 2
     if mode == "tm":
-        return min(max(int(trim), 0), (k - 1) // 2)
+        return kref.clip_trim(int(trim), k)
     return 0
 
 
@@ -134,31 +126,164 @@ def _check_mode(mode: str) -> None:
                          f"{REDUCE_MODES}")
 
 
+# ------------------------------------------------- trees of leaves
+
+MAX_LEAVES = 32  # leaves one launch takes (leaf_table.cuh kMaxLeaves)
+
+
+class TreeLaunch(NamedTuple):
+    leaves: tuple  # indices into the tree's leaves
+    first_blocks: tuple  # each leaf's first block in the launch
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def tree_launches(widths: tuple, cols: int) -> tuple:
+    """The launches of a tree kernel (``combine.cu``, ``cw_reduce.cu``) over
+    leaves of widths ``widths``: empty leaves take none, the others go in
+    order, ``MAX_LEAVES`` to a launch, and a leaf of width d takes
+    ceil(d / cols) blocks of ``cols`` columns, numbered on from the blocks of
+    the leaves before it."""
+    live = [i for i, d in enumerate(widths) if d > 0]
+    launches = []
+    for g in range(0, len(live), MAX_LEAVES):
+        leaves = tuple(live[g:g + MAX_LEAVES])
+        firsts, blocks = [], 0
+        for i in leaves:
+            firsts.append(blocks)
+            blocks += -(-widths[i] // cols)
+        launches.append(TreeLaunch(leaves, tuple(firsts), blocks))
+    return tuple(launches)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_args(widths: tuple, cols: int) -> tuple:
+    """``tree_launches`` with each launch's widths and first blocks as the C
+    arrays the tree kernels take, built once per tree shape."""
+    return tuple((leaves, len(leaves),
+                  (_I * len(leaves))(*[widths[i] for i in leaves]),
+                  (_I * len(leaves))(*firsts))
+                 for leaves, firsts, _ in tree_launches(widths, cols))
+
+
+def _pointers(ts, leaves):
+    """The data pointers of ``ts[i]`` for i in ``leaves`` as a C array, or
+    None for no tensors."""
+    return None if ts is None else (_P * len(leaves))(
+        *[ts[i].data_ptr() for i in leaves])
+
+
+def _check_leaves(xs, what: str) -> int:
+    """m of a non-empty list of contiguous (m, d_l) float32/bfloat16 leaves
+    of one m and one dtype."""
+    if not xs:
+        raise ValueError(f"{what} takes at least one leaf")
+    m = _check_stack(xs[0], what)[0]
+    for x in xs[1:]:
+        _check_stack(x, what)
+        if x.shape[0] != m or x.dtype != xs[0].dtype:
+            raise ValueError(f"{what} takes leaves of one m and one dtype, got "
+                             f"{tuple(xs[0].shape)} {xs[0].dtype} and "
+                             f"{tuple(x.shape)} {x.dtype}")
+    return m
+
+
 # ------------------------------------------------- coordinate-wise reduce
 
+CW_REDUCE_LANES = (1, 2)  # threads a column: cw_reduce.cu's instances
+CW_REDUCE_MAX_THREADS = 256  # a block's C * L (cw_reduce.cu kMaxThreads)
 
-def cw_reduce(x: torch.Tensor, mode: str, trim: int = 0) -> torch.Tensor:
-    """x: (m, d) float32 or bfloat16, contiguous, 1 <= m <= 64 -> (d,) float32.
+
+class CwReducePlan(NamedTuple):
+    lanes: int  # L: the column's sort split over L adjacent lanes
+    cols_per_block: int  # C: columns of one leaf a block
+
+
+def cw_reduce_plan_fits(plan: CwReducePlan, m: int) -> bool:
+    """Whether ``cw_reduce.cu`` takes ``plan`` for m rows: an instance of its
+    L, at most next_pow2(m) lanes, and whole warps within the launch bound."""
+    lanes, cols = plan
+    threads = lanes * cols
+    return (lanes in CW_REDUCE_LANES and lanes <= 1 << (m - 1).bit_length()
+            and cols >= 1 and threads % 32 == 0
+            and threads <= CW_REDUCE_MAX_THREADS)
+
+
+# The tuned plans (the table in cw_reduce.cu's header), keyed by m > 32:
+# one lane a column up to 32 rows, two lanes above, 64 columns a block.
+CW_REDUCE_TUNED = {False: CwReducePlan(1, 64), True: CwReducePlan(2, 64)}
+
+
+@functools.lru_cache(maxsize=None)
+def cw_reduce_plan(m: int) -> CwReducePlan:
+    """The plan of a ``cw_reduce.cu`` launch over m rows, tuned on the H100
+    (the table in ``cw_reduce.cu``'s header): ``CW_REDUCE_TUNED[m > 32]``. A
+    pure function of m."""
+    if not 1 <= m <= MAX_ROWS:
+        raise ValueError(f"cw_reduce_plan: needs 1 <= m <= {MAX_ROWS}, got {m}")
+    return CW_REDUCE_TUNED[m > 32]
+
+
+def _check_trim(trim) -> bool:
+    """Whether ``trim`` is a tensor (holding one integer), else an int."""
+    if not isinstance(trim, torch.Tensor):
+        return False
+    if (trim.numel() != 1 or trim.dtype.is_floating_point or trim.is_complex()
+            or trim.dtype == torch.bool):
+        raise TypeError(f"a trim tensor holds one integer, got "
+                        f"{tuple(trim.shape)} {trim.dtype}")
+    return True
+
+
+def tree_cw_reduce(xs, mode: str, trim=0,
+                   plan: Optional[CwReducePlan] = None) -> list:
+    """The coordinate-wise reduce of every leaf of a tree in one launch (one
+    per ``MAX_LEAVES`` leaves): xs a list of contiguous (m, d_l) float32 or
+    bfloat16 leaves of one m, dtype and device, 1 <= m <= 64 -> one (d_l,)
+    float32 output per leaf.
 
     ``mode``: "med" (median; the mean of the two middle rows for even m),
     "tm" (trimmed mean dropping ``trim`` rows at each end, ``trim`` clipped
-    to [0, (m-1)//2]) or "mean"."""
+    to [0, (m-1)//2]) or "mean". ``trim`` is an int or an integer tensor of
+    one element; on a card the kernel reads a tensor there and clips it
+    itself, so the call makes no host sync and can be captured in a CUDA
+    graph that replays with the trim changed in place."""
     _check_mode(mode)
-    m, d = _check_stack(x, "cw_reduce")
-    trim = _clip_trim(mode, trim, m)
-    if _on_cpu(x, "cw_reduce"):
-        if mode == "med":
-            return kref.cwmed_ref(x)
-        if mode == "tm":
-            return kref.cwtm_ref(x, trim)
-        return kref.cw_mean_ref(x)
-    out = torch.empty(d, dtype=torch.float32, device=x.device)
-    if d == 0:
-        return out
-    _call("cw_reduce", "cw_reduce_launch", x, out, m, d, _is_bf16(x),
-          _KERNEL_MODE[mode], trim)
-    LAUNCHES["cw_reduce"] += 1
-    return out
+    m = _check_leaves(xs, "tree_cw_reduce")
+    dev = xs[0].device
+    on_device_trim = (_check_trim(trim) and mode == "tm"
+                      and trim.device.type != "cpu")
+    if on_device_trim and trim.device != dev:
+        raise ValueError(f"tree_cw_reduce: trim on {trim.device}, leaves on "
+                         f"{dev}")
+    if _on_cpu(xs[0], "tree_cw_reduce", *xs[1:]):
+        return [kref.cw_reduce_ref(x, mode, trim) for x in xs]
+    # the kernel reads an int32 on the card (another integer type is cast
+    # there: no host sync), or takes a value clipped here
+    t_dev = trim.to(torch.int32) if on_device_trim else None
+    trim = 0 if on_device_trim else _clip_trim(mode, trim, m)
+    widths = tuple(x.shape[1] for x in xs)
+    outs = [torch.empty(d, dtype=torch.float32, device=dev) for d in widths]
+    plan = plan or cw_reduce_plan(m)
+    lib = _library("cw_reduce")
+    with _device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for leaves, n, d_arr, first_arr in _launch_args(widths,
+                                                        plan.cols_per_block):
+            err = lib.cw_reduce_launch(
+                _pointers(xs, leaves), _pointers(outs, leaves), d_arr,
+                first_arr, n, m, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
+                None if t_dev is None else t_dev.data_ptr(), plan.lanes,
+                plan.cols_per_block, stream)
+            _raise_on("cw_reduce", "cw_reduce_launch", err)
+            LAUNCHES["cw_reduce"] += 1
+    return outs
+
+
+def cw_reduce(x: torch.Tensor, mode: str, trim=0) -> torch.Tensor:
+    """x: (m, d) float32 or bfloat16, contiguous, 1 <= m <= 64 -> (d,)
+    float32: ``tree_cw_reduce`` of one leaf."""
+    return tree_cw_reduce([x], mode, trim)[0]
 
 
 def cwmed(x: torch.Tensor) -> torch.Tensor:
@@ -173,9 +298,9 @@ def cwtm(x: torch.Tensor, trim: int) -> torch.Tensor:
 
 def cwtm_masked(x: torch.Tensor, trim: torch.Tensor) -> torch.Tensor:
     """Trimmed mean with the trim count as an integer tensor (the JAX
-    package's traced-trim form). The kernel takes the count as a launch
-    argument, so a trim that lives on the card is read back first."""
-    return cw_reduce(x, "tm", int(trim))
+    package's traced-trim form): on a card the kernel reads it there, with
+    no host sync."""
+    return cw_reduce(x, "tm", trim)
 
 
 # ------------------------------------------------- squared distances
@@ -309,7 +434,6 @@ def cross_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- weighted combine
 
-COMBINE_MAX_LEAVES = 32  # leaves one launch takes (combine.cu kMaxLeaves)
 COMBINE_ROWS = (1, 3, 6, 8)  # rows a thread: combine.cu's instances
 COMBINE_SMEM = 48 * 1024  # shared bytes a block may use (combine.cu kMaxSmem)
 
@@ -363,40 +487,6 @@ def combine_plan(k: int, reduce: bool = False) -> CombinePlan:
     raise AssertionError(f"combine_plan: no instance fits k = {k}")
 
 
-class CombineLaunch(NamedTuple):
-    leaves: tuple  # indices into the tree's leaves
-    first_blocks: tuple  # each leaf's first block in the launch
-    blocks: int
-
-
-@functools.lru_cache(maxsize=4096)
-def combine_launches(widths: tuple, cols: int) -> tuple:
-    """The launches of ``combine.cu`` over leaves of widths ``widths``:
-    empty leaves take none, the others go in order, ``COMBINE_MAX_LEAVES``
-    to a launch, and a leaf of width d takes ceil(d / cols) blocks of
-    ``cols`` columns, numbered on from the blocks of the leaves before it."""
-    live = [i for i, d in enumerate(widths) if d > 0]
-    launches = []
-    for g in range(0, len(live), COMBINE_MAX_LEAVES):
-        leaves = tuple(live[g:g + COMBINE_MAX_LEAVES])
-        firsts, blocks = [], 0
-        for i in leaves:
-            firsts.append(blocks)
-            blocks += -(-widths[i] // cols)
-        launches.append(CombineLaunch(leaves, tuple(firsts), blocks))
-    return tuple(launches)
-
-
-@functools.lru_cache(maxsize=4096)
-def _launch_args(widths: tuple, cols: int) -> tuple:
-    """``combine_launches`` with each launch's widths and first blocks as
-    the C arrays ``combine_launch`` takes, built once per tree shape."""
-    return tuple((leaves, len(leaves),
-                  (_I * len(leaves))(*[widths[i] for i in leaves]),
-                  (_I * len(leaves))(*firsts))
-                 for leaves, firsts, _ in combine_launches(widths, cols))
-
-
 def _check_weights(w: torch.Tensor, m: int, what: str) -> torch.Tensor:
     if w.dim() != 2 or w.shape[1] != m or not 1 <= w.shape[0] <= MAX_ROWS:
         raise ValueError(f"{what} takes weights of shape (k, {m}) with 1 <= k "
@@ -407,26 +497,11 @@ def _check_weights(w: torch.Tensor, m: int, what: str) -> torch.Tensor:
     return w.to(torch.float32).contiguous()
 
 
-def _check_leaves(xs, what: str) -> int:
-    """m of a non-empty list of contiguous (m, d_l) float32/bfloat16 leaves
-    of one m and one dtype."""
-    if not xs:
-        raise ValueError(f"{what} takes at least one leaf")
-    m = _check_stack(xs[0], what)[0]
-    for x in xs[1:]:
-        _check_stack(x, what)
-        if x.shape[0] != m or x.dtype != xs[0].dtype:
-            raise ValueError(f"{what} takes leaves of one m and one dtype, got "
-                             f"{tuple(xs[0].shape)} {xs[0].dtype} and "
-                             f"{tuple(x.shape)} {x.dtype}")
-    return m
-
-
 def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
              what: str, keep_rows: bool = True,
              plan: Optional[CombinePlan] = None):
     """One pass of ``combine.cu`` over the leaves ``xs``, one launch per
-    ``COMBINE_MAX_LEAVES`` of them: (y = w @ x per leaf if ``write_y``, the
+    ``MAX_LEAVES`` of them: (y = w @ x per leaf if ``write_y``, the
     reduce of y's rows per leaf if ``mode``), each a list or None. A leaf's
     y is (k, d), or (d,) at k = 1 unless ``keep_rows``."""
     m = _check_leaves(xs, what)
@@ -455,11 +530,9 @@ def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for leaves, n, d_arr, first_arr in _launch_args(widths,
                                                         plan.cols_per_block):
-            def ptrs(ts):
-                return None if ts is None else (_P * n)(
-                    *[ts[i].data_ptr() for i in leaves])
             err = lib.combine_launch(
-                ptrs(xs), ptrs(ys), ptrs(reds), d_arr, first_arr, n,
+                _pointers(xs, leaves), _pointers(ys, leaves),
+                _pointers(reds, leaves), d_arr, first_arr, n,
                 w.data_ptr(), m, k, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
                 plan.rows_per_thread, plan.cols_per_block, stream)
             _raise_on("combine", "combine_launch", err)
@@ -484,7 +557,7 @@ def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str,
 
 def tree_weighted_combine(xs, w: torch.Tensor) -> list:
     """``weighted_combine`` of every leaf of a tree in one launch (one per
-    ``COMBINE_MAX_LEAVES`` leaves): xs a list of contiguous (m, d_l) leaves
+    ``MAX_LEAVES`` leaves): xs a list of contiguous (m, d_l) leaves
     of one m, dtype and device -> one float32 output per leaf, (d_l,) at
     k = 1 and (k, d_l) above it."""
     return _combine(xs, w, None, 0, True, "tree_weighted_combine",
@@ -493,7 +566,7 @@ def tree_weighted_combine(xs, w: torch.Tensor) -> list:
 
 def tree_combine_reduce(xs, w: torch.Tensor, mode: str, trim: int = 0) -> list:
     """``combine_reduce`` of every leaf of a tree in one launch (one per
-    ``COMBINE_MAX_LEAVES`` leaves) -> one (d_l,) float32 output per leaf."""
+    ``MAX_LEAVES`` leaves) -> one (d_l,) float32 output per leaf."""
     _check_mode(mode)
     return _combine(xs, w, mode, trim, False, "tree_combine_reduce")[1]
 
@@ -522,7 +595,7 @@ def fused_pass(x: torch.Tensor, *, w: Optional[torch.Tensor] = None,
     out = {}
     if reduce is not None or combine:
         if w is None:
-            out["reduce"] = cw_reduce(x, reduce, int(trim))
+            out["reduce"] = cw_reduce(x, reduce, trim)
         else:
             ys, reds = _combine([x], w, reduce, trim, combine,
                                 "combine_reduce" if reduce else

@@ -45,6 +45,27 @@ def cw_mean_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(x.to(torch.float32), dim=0)
 
 
+def clip_trim(trim, m: int):
+    """``trim`` clipped to [0, (m-1)//2], the most a two-sided trim of m rows
+    may drop: an int, or an integer tensor clipped where it lies (no host
+    copy)."""
+    if isinstance(trim, torch.Tensor):
+        return torch.clamp(trim, 0, (m - 1) // 2)
+    return min(max(int(trim), 0), (m - 1) // 2)
+
+
+def cw_reduce_ref(x: torch.Tensor, mode: str, trim=0) -> torch.Tensor:
+    """x: (m, d) -> (d,) reduced by ``mode``: "med", "tm" (``trim``, an int
+    or an integer tensor, clipped by ``clip_trim``) or "mean"."""
+    if mode == "med":
+        return cwmed_ref(x)
+    if mode == "tm":
+        return cwtm_ref(x, clip_trim(trim, x.shape[0]))
+    if mode == "mean":
+        return cw_mean_ref(x)
+    raise ValueError(f"unknown reduce mode {mode!r}")
+
+
 def pairwise_sqdist_ref(x: torch.Tensor) -> torch.Tensor:
     """x: (m, d) -> (m, m) squared L2 distances (float32), by the Gram
     expansion ``sq_i + sq_j - 2 x_i.x_j`` clamped at 0 (NaN stays NaN)."""
@@ -75,13 +96,7 @@ def weighted_combine_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def combine_reduce_ref(x: torch.Tensor, w: torch.Tensor, mode: str,
                        trim=0) -> torch.Tensor:
     """The rows of ``w @ x`` (w: (k, m)) reduced coordinate-wise to (d,) by
-    ``mode``: "med", "tm" (``trim`` rows dropped at each end) or "mean". The
-    two steps the separate plain versions take: combine, then reduce."""
-    mixed = weighted_combine_ref(x, w)
-    if mode == "med":
-        return cwmed_ref(mixed)
-    if mode == "tm":
-        return cwtm_ref(mixed, trim)
-    if mode != "mean":
-        raise ValueError(f"unknown combine_reduce mode {mode!r}")
-    return torch.mean(mixed, dim=0)
+    ``mode``: "med", "tm" (``trim`` rows dropped at each end, clipped as
+    ``clip_trim`` does) or "mean". The two steps the separate plain versions
+    take: combine, then reduce."""
+    return cw_reduce_ref(weighted_combine_ref(x, w), mode, trim)

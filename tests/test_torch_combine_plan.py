@@ -1,5 +1,5 @@
 """The launch planner of the combine kernels (``kernels/fused.py::
-combine_plan``, ``combine_plan_fits``, ``combine_launches``), pure functions
+combine_plan``, ``combine_plan_fits``, ``tree_launches``), pure functions
 that run on the CPU: every column of every leaf falls in exactly one block,
 no block is empty, a tree of more leaves than one launch takes splits into
 the right launches, and every k gets a plan ``combine.cu`` takes for every
@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import fused
 from repro_torch.kernels import ref as kref
 
-MAX = fused.COMBINE_MAX_LEAVES
+MAX = fused.MAX_LEAVES
 TREES = {
     "main": (128, 10, 8192, 1280),
     "one": (9610,),
@@ -28,7 +28,7 @@ def _blocks_of(widths, cols):
     """Every (leaf, column range) each block of each launch takes, found the
     way the kernel finds it: the last leaf whose first block is <= b."""
     seen = []
-    for leaves, firsts, blocks in fused.combine_launches(widths, cols):
+    for leaves, firsts, blocks in fused.tree_launches(widths, cols):
         assert 1 <= len(leaves) <= MAX
         assert firsts[0] == 0 and list(firsts) == sorted(firsts)
         for b in range(blocks):
@@ -56,24 +56,24 @@ def test_every_column_in_exactly_one_block(tree, cols):
                                      (65, [32, 32, 1]), (100, [32, 32, 32, 4])])
 def test_trees_split_into_launches_of_at_most_max_leaves(n, sizes):
     widths = tuple(1 + i % 60 for i in range(n))
-    launches = fused.combine_launches(widths, 64)
+    launches = fused.tree_launches(widths, 64)
     assert [len(l.leaves) for l in launches] == sizes
     assert [i for l in launches for i in l.leaves] == list(range(n))
     assert all(l.blocks == len(l.leaves) for l in launches)  # d <= 64: one block
 
 
 def test_empty_leaves_take_no_launch():
-    assert fused.combine_launches((0, 0, 0), 64) == ()
-    (launch,) = fused.combine_launches(TREES["empty_leaves"], 32)
+    assert fused.tree_launches((0, 0, 0), 64) == ()
+    (launch,) = fused.tree_launches(TREES["empty_leaves"], 32)
     assert launch.leaves == (1, 4) and launch.first_blocks == (0, 1)
     assert launch.blocks == 4
     many = TREES["many_empty"]
-    assert [len(l.leaves) for l in fused.combine_launches(many, 64)] == [32, 32]
+    assert [len(l.leaves) for l in fused.tree_launches(many, 64)] == [32, 32]
 
 
 def test_main_path_tree_is_one_launch():
-    (launch,) = fused.combine_launches(TREES["main"], 64)
-    assert launch == fused.CombineLaunch((0, 1, 2, 3), (0, 2, 3, 131), 151)
+    (launch,) = fused.tree_launches(TREES["main"], 64)
+    assert launch == fused.TreeLaunch((0, 1, 2, 3), (0, 2, 3, 131), 151)
 
 
 @pytest.mark.parametrize("reduce", [False, True])

@@ -403,7 +403,7 @@ def test_rules_on_card_match_plain(cuda_device, name):
 # leaf widths: the main path's tree, one leaf, more leaves than one launch
 # takes (widths 1 to 97, some not a multiple of 4), and narrow odd widths
 TREES = {"main": (8192, 1280, 128, 10), "one": (777,),
-         "many": tuple(1 + (37 * i) % 97 for i in range(fused.COMBINE_MAX_LEAVES + 9)),
+         "many": tuple(1 + (37 * i) % 97 for i in range(fused.MAX_LEAVES + 9)),
          "odd": (1, 3, 5, 7, 13, 130, 0, 6)}
 
 
@@ -417,7 +417,7 @@ def _tree_weights(k, m, seed):
 
 
 def _launches_per_call(widths):
-    return -(-sum(1 for d in widths if d) // fused.COMBINE_MAX_LEAVES)
+    return -(-sum(1 for d in widths if d) // fused.MAX_LEAVES)
 
 
 @pytest.mark.parametrize("k,m", [(1, 17), (17, 17), (64, 64)])
@@ -610,3 +610,207 @@ def test_agg_engine_tree_forms_one_launch_on_card(cuda_device):
             assert got[key].shape == want[key].shape
             assert got[key].dtype == want[key].dtype
             torch.testing.assert_close(got[key].cpu(), want[key], **TOL)
+
+
+# ------------------------------------------------- cw_reduce.cu: one launch a tree
+
+CW_TREES = {"main": (8192, 1280, 128, 10), "one": (9610,),
+            "many": TREES["many"], "odd": (1, 3, 5, 7, 13, 130, 0, 1282)}
+
+
+def _cw_cases(m, dev):
+    return ([("med", 0), ("mean", 0)]
+            + [("tm", t) for t in sorted({0, 8, (m - 1) // 2})]
+            + [("tm", torch.tensor(8, dtype=torch.int32, device=dev))])
+
+
+@pytest.mark.parametrize("m", [2, 17, 33, 64])
+@pytest.mark.parametrize("tree", sorted(CW_TREES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tree_cw_reduce_matches_plain_and_leaves(cuda_device, m, tree, dtype):
+    """A tree launch within 1e-5 of the plain version of every leaf and
+    bitwise equal to one launch per leaf, the trim a value or an int32 on
+    the card; launches counted per tree call."""
+    widths = CW_TREES[tree]
+    xs = _leaves(m, widths, 200 + m, dtype)
+    xds = [x.to(cuda_device) for x in xs]
+    per_call = _launches_per_call(widths)
+    for mode, trim in _cw_cases(m, cuda_device):
+        before = fused.LAUNCHES["cw_reduce"]
+        got = fused.tree_cw_reduce(xds, mode, trim)
+        assert fused.LAUNCHES["cw_reduce"] == before + per_call
+        for x, xd, out in zip(xs, xds, got):
+            assert out.shape == (x.shape[1],) and out.dtype == torch.float32
+            assert torch.equal(out, fused.cw_reduce(xd, mode, trim))
+            torch.testing.assert_close(
+                out.cpu(), kref.cw_reduce_ref(x, mode, trim.cpu() if torch.is_tensor(trim)
+                                              else trim), **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 17, 64])
+def test_every_cw_reduce_plan_gives_the_same_bits(cuda_device, m):
+    """Every plan cw_reduce.cu takes (1 or 2 lanes a column, 16 to 256
+    columns a block) gives the default plan's bits, in every mode, with a
+    1e30 row and a NaN in the tree."""
+    xs = _leaves(m, CW_TREES["odd"] + CW_TREES["main"], 21, torch.float32)
+    xs[1][0] = 1e30
+    xs[8][m // 2, 5] = float("nan")
+    xds = [x.to(cuda_device) for x in xs]
+    tried = 0
+    for mode in fused.REDUCE_MODES:
+        want = fused.tree_cw_reduce(xds, mode, 8)
+        for lanes in fused.CW_REDUCE_LANES:
+            for cols in (16, 32, 64, 128, 256):
+                plan = fused.CwReducePlan(lanes, cols)
+                if not fused.cw_reduce_plan_fits(plan, m):
+                    continue
+                got = fused.tree_cw_reduce(xds, mode, 8, plan=plan)
+                for a, b in zip(got, want):  # as bits: NaN == NaN
+                    assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                        (plan, mode)
+                tried += 1
+    assert tried >= 3 * (4 if m == 1 else 8)
+
+
+def test_tree_cw_reduce_nan_and_outlier_on_card(cuda_device):
+    """A 1e30 row and a NaN in one leaf: the NaN column is NaN in that leaf
+    only, as the plain versions give it."""
+    xs = _leaves(17, CW_TREES["main"], 22, torch.float32)
+    xs[1][0] = 1e30
+    xs[1][5, 3] = float("nan")
+    xds = [x.to(cuda_device) for x in xs]
+    for mode in fused.REDUCE_MODES:
+        got = fused.tree_cw_reduce(xds, mode, 8)
+        assert torch.isnan(got[1][3]) and not torch.isnan(got[0]).any()
+        for x, out in zip(xs, got):
+            torch.testing.assert_close(out.cpu(), kref.cw_reduce_ref(x, mode, 8),
+                                       equal_nan=True, **TOL)
+
+
+def test_tree_cw_reduce_device_trim_clips(cuda_device):
+    """A trim on the card out of range clips as a value does, in int32 and
+    in int64 (cast on the card)."""
+    xds = [x.to(cuda_device) for x in _leaves(9, (50, 3), 23, torch.float32)]
+    for trim in (-5, -1, 0, 2, 4, 5, 1000):
+        want = fused.tree_cw_reduce(xds, "tm", trim)
+        for dtype in (torch.int32, torch.int64):
+            t = torch.tensor(trim, dtype=dtype, device=cuda_device)
+            for a, b in zip(fused.tree_cw_reduce(xds, "tm", t), want):
+                assert torch.equal(a, b), (trim, dtype)
+
+
+def test_cwtm_masked_makes_no_host_sync(cuda_device):
+    """cwtm_masked and the tree form with an int32 trim on the card run
+    under set_sync_debug_mode("error"), which raises on a host sync."""
+    xd = _stack(17, 9610, 24, torch.float32).to(cuda_device)
+    xds = [x.to(cuda_device) for x in _leaves(17, CW_TREES["main"], 25,
+                                              torch.float32)]
+    t = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    fused.cwtm_masked(xd, t)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fused.cwtm_masked(xd, t)
+        tree = agg_engine.tree_cw_reduce(
+            dict(zip("abcd", xds)), "tm", t, backend="kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, fused.cwtm(xd, 8))
+    for key, x in zip("abcd", xds):
+        assert torch.equal(tree[key], fused.cwtm(x, 8))
+
+
+def test_tree_cw_reduce_graph_replay_with_trim_changed(cuda_device):
+    """A CUDA graph of tree calls (trim a value, and on the card), replayed
+    after the trim tensor changes in place, gives the eager calls' bits at
+    the new trim."""
+    xds = [x.to(cuda_device) for x in _leaves(17, CW_TREES["main"], 26,
+                                              torch.float32)]
+    t = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+
+    def calls():
+        return (fused.tree_cw_reduce(xds, "tm", t)
+                + fused.tree_cw_reduce(xds, "med")
+                + fused.tree_cw_reduce(xds, "tm", 3))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for trim in (8, 0, 5, 100, -1, 8):
+        t.fill_(trim)
+        for out in captured:
+            out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (fused.tree_cw_reduce(xds, "tm", trim)
+                + fused.tree_cw_reduce(xds, "med")
+                + fused.tree_cw_reduce(xds, "tm", 3))
+        for got, w in zip(captured, want):
+            assert torch.equal(got, w), trim
+
+
+def test_tree_cw_reduce_two_streams(cuda_device):
+    """Tree calls running at once on two streams keep their bits."""
+    trees = [[x.to(cuda_device) for x in _leaves(17, CW_TREES["main"], 30 + 4 * i,
+                                                  torch.float32)]
+             for i in range(2)]
+    t = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    want = [fused.tree_cw_reduce(xds, "tm", t) for xds in trees]
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        outs = []
+        for s, xds in zip((s1, s2), trees):
+            with torch.cuda.stream(s):
+                outs.append([fused.tree_cw_reduce(xds, "tm", t) for _ in range(4)])
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert all(torch.equal(a, b) for call in o for a, b in zip(call, w))
+
+
+@pytest.mark.parametrize("tree", ["main", "many"])
+def test_tree_cw_reduce_one_launch_per_call(cuda_device, tree):
+    """One CUDA kernel per tree call (two for a tree of more leaves than a
+    launch takes), the trim a value or an int32 on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    widths = CW_TREES[tree]
+    xds = [x.to(cuda_device) for x in _leaves(17, widths, 27, torch.float32)]
+    t = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    for call in (lambda: fused.tree_cw_reduce(xds, "tm", 8),
+                 lambda: fused.tree_cw_reduce(xds, "tm", t)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == _launches_per_call(widths), [e.name for e in kernels]
+        assert all("cw_reduce_kernel" in e.name for e in kernels)
+
+
+@pytest.mark.parametrize("name", ["cwtm", "cwmed", "mean"])
+def test_coordinate_wise_rules_one_launch_a_tree(cuda_device, name):
+    """The coordinate-wise rules' tree on the kernel backend: one launch a
+    call, the leaves' shapes and dtypes, the plain backend's values."""
+    rng = np.random.default_rng(28)
+    shapes = {"b1": (128,), "b2": (10,), "w1": (64, 128), "w2": (128, 10)}
+    stacked = {k: torch.from_numpy(rng.normal(size=(17,) + s).astype(np.float32))
+               for k, s in shapes.items()}
+    before = fused.LAUNCHES["cw_reduce"]
+    got = agg_engine.get_aggregator(name, delta=8 / 17 + 1e-3, backend="kernel").tree(
+        {k: v.to(cuda_device) for k, v in stacked.items()})
+    assert fused.LAUNCHES["cw_reduce"] == before + 1
+    want = agg_engine.get_aggregator(name, delta=8 / 17 + 1e-3, backend="ref").tree(
+        stacked)
+    for key in shapes:
+        assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype
+        torch.testing.assert_close(got[key].cpu(), want[key], **TOL)
