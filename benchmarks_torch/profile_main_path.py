@@ -2,17 +2,21 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
     python3 benchmarks_torch/profile_main_path.py [--T 150] [--aggregator cwtm]
+        [--driver round|scan] [--attack sign_flip]
 
-Runs the Figure-1 setting of chip_smoke.py (m=17, 8 Byzantine, sign_flip
-under Periodic(10), δ = 8/17 + 1e-3, the 64-128-10 MLP) with one of its
-rules (``cwtm``, ``nnm+cwtm``, ``krum``, ``geomed`` with sgd(0.1), or ``mfm``
-with Option 2 and adagrad_norm(0.5)) through ``run_dynabro`` on each
-aggregation backend (``auto`` = the CUDA kernels, and ``ref`` = the plain
-PyTorch versions): a warm-up run, a timed run without the profiler, then a
-run under ``torch.profiler``. Prints one JSON line per
-backend with the rounds/s, the device's busy and idle share of the profiled
-run's wall time (busy = the union of the card's kernel intervals), the
-kernels launched per round, and the kernels that take the most device time.
+Runs the Figure-1 setting of chip_smoke.py (m=17, 8 Byzantine, Periodic(10),
+δ = 8/17 + 1e-3, the 64-128-10 MLP) under one attack (default
+``sign_flip``) with one of its rules (``cwtm``, ``nnm+cwtm``, ``krum``,
+``geomed`` with sgd(0.1), or ``mfm`` with Option 2 and adagrad_norm(0.5))
+through one driver: ``round`` is ``run_dynabro``, ``scan`` is
+``run_dynabro_scan`` replaying one CUDA graph per MLMC level (its graphs
+captured in the warm-up run and kept). Each aggregation backend in turn
+(``auto`` = the CUDA kernels, ``ref`` = the plain PyTorch versions) gets a
+warm-up run, a timed run without the profiler, then a run under
+``torch.profiler``. Prints one JSON line per backend with the rounds/s, the
+device's busy and idle share of the profiled run's wall time (busy = the
+union of the card's kernel intervals), the kernels launched per round, and
+the kernels that take the most device time.
 """
 import argparse
 import dataclasses
@@ -30,9 +34,10 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import (  # noqa: E402
-    DynaBROConfig, MLMCConfig, adagrad_norm, get_switcher, make_task,
-    run_dynabro, sgd,
+    DynaBROConfig, MLMCConfig, adagrad_norm, get_switcher,
+    make_dynabro_scan_fn, make_task, run_dynabro, run_dynabro_scan, sgd,
 )
+from repro_torch.core.attacks import ATTACKS  # noqa: E402
 
 M, N_BYZ = 17, 8
 
@@ -53,6 +58,8 @@ def main():
     ap.add_argument("--T", type=int, default=150)
     ap.add_argument("--aggregator", default="cwtm",
                     choices=["cwtm", "nnm+cwtm", "krum", "geomed", "mfm"])
+    ap.add_argument("--driver", default="round", choices=["round", "scan"])
+    ap.add_argument("--attack", default="sign_flip", choices=sorted(ATTACKS))
     args = ap.parse_args()
     option = 2 if args.aggregator == "mfm" else 1
     if not torch.cuda.is_available():
@@ -62,18 +69,25 @@ def main():
     cfg = DynaBROConfig(
         mlmc=MLMCConfig(T=args.T, m=M, V=5.0, option=option, kappa=1.0,
                         j_cap=5),
-        aggregator=args.aggregator, delta=N_BYZ / M + 1e-3, attack="sign_flip")
+        aggregator=args.aggregator, delta=N_BYZ / M + 1e-3, attack=args.attack)
+
+    def make_opt():
+        return adagrad_norm(0.5) if option == 2 else sgd(0.1)
 
     for backend in ("auto", "ref"):
         cfg_b = dataclasses.replace(cfg, agg_backend=backend)
+        if args.driver == "scan":  # graphs captured in the warm-up, kept
+            scan_fn = make_dynabro_scan_fn(grad_fn, cfg_b, make_opt())
+            driver, kw = run_dynabro_scan, dict(scan_fn=scan_fn)
+        else:
+            scan_fn, driver, kw = None, run_dynabro, {}
 
         def run():
             sw = get_switcher("periodic", M, n_byz=N_BYZ, K=10)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            opt = adagrad_norm(0.5) if option == 2 else sgd(0.1)
-            run_dynabro(grad_fn, params0, opt, cfg_b, sw, sampler, args.T,
-                        seed=0)
+            driver(grad_fn, params0, make_opt(), cfg_b, sw, sampler, args.T,
+                   seed=0, **kw)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -91,8 +105,11 @@ def main():
         top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
         print(json.dumps({
             "phase": "profile", "aggregator": args.aggregator,
+            "attack": args.attack, "driver": args.driver,
             "backend": backend, "T": args.T,
             "device": torch.cuda.get_device_name(0),
+            "capture_s": ({str(j): c for j, c in scan_fn.capture_seconds.items()}
+                          if scan_fn else None),
             "wall_s": wall, "rounds_per_s": args.T / wall,
             "profiled_wall_s": wall_prof,
             "device_busy_s": busy / 1e6,

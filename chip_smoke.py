@@ -44,12 +44,25 @@ sources there (``nvcc``, one process per source, all started together, into
      launch count, the round logs and params against the plain backend, and
      that no discrete choice of the rule (Krum's pick, NNM's neighbours,
      MFM's filter) differs between the two;
-  6. times each kernel at the main path's shapes beside its plain version,
+  6. trains the same setting through the compiled driver
+     (``run_dynabro_scan``, one captured CUDA graph per MLMC level) with
+     CWTM, NNM+CWTM, MFM, Krum and GeoMed beside ``run_dynabro``: equal round
+     logs and evals, params within 1e-6 (CWTM) or 1e-5, the per-round
+     driver's exact launch counts, every round a graph replay under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync between
+     evaluation points, no eager fallback), and rounds/s of the two drivers
+     in turns on CWTM and GeoMed, with each level's capture time; CWTM under
+     the shift, ipm, alie (z = 1.22 and z from the Byzantine count) and
+     random attacks through both drivers, and the random attack's
+     statistics on one stack; and the App. E comparison at full width:
+     worker momentum (``run_momentum``, ``run_momentum_scan``) under the
+     momentum-tailored switcher and shift, beside DynaBRO's compiled driver;
+  7. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
      tree (``cw_reduce`` beside one launch per leaf), and ``cw_reduce`` also
      at 64 x 8192 and at 17 x 2^20 in float32 and bfloat16;
-  7. prints the ``{"kernels": [...]}`` summary, then
+  8. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
@@ -71,8 +84,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import (  # noqa: E402
-    LAUNCHES, DynaBROConfig, MLMCConfig, adagrad_norm, get_switcher,
-    make_task, run_dynabro, sgd,
+    LAUNCHES, DynaBROConfig, MLMCConfig, adagrad_norm, get_attack,
+    get_switcher, make_dynabro_scan_fn, make_momentum_scan_fn, make_task,
+    run_dynabro, run_dynabro_scan, run_momentum, run_momentum_scan, sgd,
 )
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -662,7 +676,226 @@ def geometry_path(task, rule):
     return launches
 
 
-# ------------------------------------------------------------- 6. timing
+# ----------------------------------------------- 6. the compiled driver
+
+# rule: (MLMC option, optimizer, params limit against the per-round driver)
+SCAN_PATHS = {
+    "cwtm": (1, lambda: sgd(0.1), 1e-6),
+    "nnm+cwtm": (1, lambda: sgd(0.1), 1e-5),
+    "mfm": (2, lambda: adagrad_norm(0.5), 1e-5),
+    "krum": (1, lambda: sgd(0.1), 1e-5),
+    "geomed": (1, lambda: sgd(0.1), 1e-5),
+}
+TIMED_PAIRS = 3  # per-round and compiled runs in turns, on CWTM and GeoMed
+SYNC_DEBUG_ERROR = 2  # torch.cuda.get_sync_debug_mode() under "error"
+
+
+@contextlib.contextmanager
+def watch_replays():
+    """Count the CUDA graph replays made while the block runs and the sync
+    debug mode each one ran under."""
+    modes, replay = [], torch.cuda.CUDAGraph.replay
+
+    def watched(graph):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(graph)
+
+    torch.cuda.CUDAGraph.replay = watched
+    try:
+        yield modes
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+
+
+def fig1_cfg(rule, option=1, attack="sign_flip", kwargs=None):
+    return DynaBROConfig(
+        mlmc=MLMCConfig(T=T, m=M, V=5.0, option=option, kappa=1.0, j_cap=5),
+        aggregator=rule, delta=DELTA, attack=attack, attack_kwargs=kwargs)
+
+
+def periodic():
+    return get_switcher("periodic", M, n_byz=N_BYZ, K=10)
+
+
+def max_diff(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def compare_drivers(round_out, scan_out, params0, limit, what):
+    """Round logs and evals equal, params finite, of their shapes and within
+    ``limit`` of the per-round driver's. Returns (max diff, bitwise)."""
+    (p1, l1, e1), (p2, l2, e2) = round_out, scan_out
+    assert [vars(l) for l in l1] == [vars(l) for l in l2], f"{what}: logs differ"
+    assert e1 == e2, f"{what}: evals differ: {e1} {e2}"
+    for k in params0:
+        assert p2[k].shape == params0[k].shape, (what, k)
+        assert bool(torch.isfinite(p2[k]).all()), f"{what}: non-finite {k}"
+    diff = max_diff(p1, p2)
+    assert diff <= limit, f"{what}: scan vs per-round params differ by {diff}"
+    return diff, all(torch.equal(p1[k], p2[k]) for k in p1)
+
+
+def scan_path(task, rule):
+    """Train the Figure-1 setting with ``rule`` through ``run_dynabro_scan``
+    (one CUDA graph per level) and through ``run_dynabro``, and check the
+    compiled driver against the per-round one. On CWTM and GeoMed, time the
+    two in turns with the graphs kept."""
+    params0, grad_fn, sampler, eval_fn = task
+    option, make_opt, limit = SCAN_PATHS[rule]
+    cfg = fig1_cfg(rule, option)
+    scan_fn = make_dynabro_scan_fn(grad_fn, cfg, make_opt())
+
+    def run(driver):
+        kw = dict(scan_fn=scan_fn) if driver is run_dynabro_scan else {}
+        return timed(lambda: driver(grad_fn, params0, make_opt(), cfg,
+                                    periodic(), sampler, T, seed=0,
+                                    eval_fn=eval_fn, eval_every=30, **kw))
+
+    reset_launches()
+    with watch_replays() as modes:
+        scan_out, first_s = run(run_dynabro_scan)  # captures every level
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    reset_launches()
+    round_out, round_s = run(run_dynabro)
+    round_launches = {k: v for k, v in LAUNCHES.items() if v}
+    diff, bitwise = compare_drivers(round_out, scan_out, params0, limit,
+                                    f"scan {rule}")
+    logs, evals = scan_out[1], scan_out[2]
+    expected = ({"cw_reduce": 440} if rule == "cwtm"
+                else EXPECTED_LAUNCHES[rule])
+    row = {"phase": "scan_path", "rule": rule, "T": T, "m": M,
+           "levels": sorted(scan_fn.capture_seconds),
+           "capture_s": {str(j): s for j, s in scan_fn.capture_seconds.items()},
+           "replays": len(modes),
+           "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+           "launches": launches, "round_launches": round_launches,
+           "expected_launches": expected, "logs_equal": True,
+           "evals": [[t, e["test_acc"]] for t, e in evals],
+           "test_acc": evals[-1][1]["test_acc"],
+           "max_param_diff_vs_round": diff, "bitwise_equal": bitwise,
+           "limit": limit, "first_run_s": first_s, "round_run_s": round_s}
+    if rule in ("cwtm", "geomed"):
+        pairs = []
+        for _ in range(TIMED_PAIRS):
+            _, r_s = run(run_dynabro)
+            _, s_s = run(run_dynabro_scan)
+            pairs.append({"round_rounds_per_s": T / r_s,
+                          "scan_rounds_per_s": T / s_s})
+        assert scan_fn.captures == len(scan_fn.capture_seconds), "recaptured"
+        row["timed_pairs"] = pairs
+    emit(row)
+    # no fallback: every round was a replay, each under the sync check
+    assert len(modes) == T == row["replays_under_sync_error"], modes
+    assert launches == round_launches == expected, row
+    if rule in ("cwtm", "nnm+cwtm"):
+        assert row["test_acc"] > 0.8, f"scan {rule}: test_acc {row['test_acc']}"
+    return launches
+
+
+# attack: its kwargs; the Figure-1 setting with CWTM under each
+ATTACK_CASES = [("shift", {"v": 1.0}), ("ipm", {"eps": 0.1}),
+                ("alie", {"z": 1.22}), ("alie", {"z": None}),
+                ("random", {"scale": 10.0})]
+
+
+def check_random_stack(dev, scale=10.0):
+    """The random attack on one stack of the main path's four leaves on the
+    card: honest rows untouched, the Byzantine rows' N entries with mean
+    within 5·scale/√N of 0 and standard deviation within 2 % of scale."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    stack = {f"l{i}": torch.randn(m, d, generator=gen, device=dev)
+             for i, (m, d) in enumerate(LEAF_SHAPES)}
+    mask = torch.as_tensor(periodic().mask(0), device=dev)
+    out = get_attack("random", scale=scale)(stack, mask, generator=gen)
+    byz = torch.cat([out[k][mask].reshape(-1) for k in sorted(out)]).double()
+    for k in stack:
+        assert torch.equal(out[k][~mask], stack[k][~mask]), f"honest rows of {k}"
+    n = byz.numel()
+    mean, std = float(byz.mean()), float(byz.std())
+    assert abs(mean) <= 5 * scale / n ** 0.5, (mean, n)
+    assert abs(std / scale - 1.0) <= 0.02, std
+    return {"entries": n, "mean": mean, "mean_limit": 5 * scale / n ** 0.5,
+            "std": std, "std_limit": [0.98 * scale, 1.02 * scale]}
+
+
+def attack_paths(task, dev):
+    """CWTM on the Figure-1 setting under each attack, through both drivers
+    on the card: finite params, equal logs, params within 1e-6."""
+    params0, grad_fn, sampler, eval_fn = task
+    rows = []
+    for attack, kwargs in ATTACK_CASES:
+        cfg = fig1_cfg("cwtm", attack=attack, kwargs=kwargs)
+        runs = [driver(grad_fn, params0, sgd(0.1), cfg, periodic(), sampler,
+                       T, seed=0, eval_fn=eval_fn, eval_every=T)
+                for driver in (run_dynabro, run_dynabro_scan)]
+        diff, bitwise = compare_drivers(*runs, params0, 1e-6,
+                                        f"attack {attack} {kwargs}")
+        rows.append({"attack": attack, "kwargs": kwargs,
+                     "test_acc": runs[1][2][-1][1]["test_acc"],
+                     "failsafe_ok": sum(l.failsafe_ok for l in runs[1][1]),
+                     "max_param_diff_vs_round": diff, "bitwise_equal": bitwise})
+    emit({"phase": "attacks", "rule": "cwtm", "T": T, "m": M, "rows": rows,
+          "random_stack": check_random_stack(dev)})
+
+
+def momentum_path(task):
+    """App. E at full width: worker momentum (β = 0.9, lr = 0.1) under
+    momentum_tailored(α = 0.1) and shift (v=1), CWTM, through both momentum
+    drivers, beside DynaBRO's compiled driver on the same switcher and
+    attack."""
+    params0, grad_fn, sampler, eval_fn = task
+    cfg = fig1_cfg("cwtm", attack="shift", kwargs={"v": 1.0})
+
+    def tailored():
+        return get_switcher("momentum_tailored", M, alpha=0.1)
+
+    runs, launches = {}, {}
+    for name, call in [
+            ("run_momentum", lambda: run_momentum(
+                grad_fn, params0, cfg, tailored(), sampler, T, lr=0.1,
+                beta=0.9, eval_fn=eval_fn, eval_every=T)),
+            ("run_momentum_scan", lambda: run_momentum_scan(
+                grad_fn, params0, cfg, tailored(), sampler, T, lr=0.1,
+                beta=0.9, eval_fn=eval_fn, eval_every=T,
+                scan_fn=make_momentum_scan_fn(grad_fn, cfg, 0.1, 0.9)))]:
+        reset_launches()
+        with watch_replays() as modes:
+            runs[name], secs = timed(call)
+        launches[name] = {"cw_reduce": LAUNCHES["cw_reduce"],
+                          "replays": len(modes), "seconds": secs}
+    dyn_p, dyn_logs, dyn_evals = run_dynabro_scan(
+        grad_fn, params0, sgd(0.1), cfg, tailored(), sampler, T, seed=0,
+        eval_fn=eval_fn, eval_every=T)
+    (p1, e1), (p2, e2) = runs["run_momentum"], runs["run_momentum_scan"]
+    diff = max_diff(p1, p2)
+    emit({"phase": "momentum_path", "T": T, "m": M, "alpha": 0.1, "beta": 0.9,
+          "lr": 0.1, "attack": "shift v=1", "rule": "cwtm",
+          "momentum_test_acc": e1[-1][1]["test_acc"],
+          "momentum_scan_test_acc": e2[-1][1]["test_acc"],
+          "dynabro_scan_test_acc": dyn_evals[-1][1]["test_acc"],
+          "dynabro_failsafe_ok": sum(l.failsafe_ok for l in dyn_logs),
+          "max_param_diff": diff,
+          "bitwise_equal": all(torch.equal(p1[k], p2[k]) for k in p1),
+          "runs": launches})
+    for k in params0:
+        assert bool(torch.isfinite(p2[k]).all()), f"momentum: non-finite {k}"
+        assert bool(torch.isfinite(dyn_p[k]).all()), f"dynabro: non-finite {k}"
+    assert diff <= 1e-6, f"momentum drivers differ by {diff}"
+    assert launches["run_momentum"]["cw_reduce"] == T, launches
+    assert launches["run_momentum_scan"]["cw_reduce"] == T, launches
+    assert launches["run_momentum_scan"]["replays"] == T, launches
+    return {"cw_reduce": T}
+
+
+# ------------------------------------------------------------- 7. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -980,6 +1213,10 @@ def main():
     by_path = {"cwtm": {"cw_reduce": launches}}
     for rule in GEOMETRY_PATHS:
         by_path[rule] = geometry_path(task, rule)
+    for rule in SCAN_PATHS:
+        by_path[f"scan {rule}"] = scan_path(task, rule)
+    attack_paths(task, dev)
+    by_path["momentum"] = momentum_path(task)
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"

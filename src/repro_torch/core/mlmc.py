@@ -12,11 +12,13 @@ with ``C = sqrt(8 log(16 m² T))``; Option 1 sets ``c_E = √γ``
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 
 def sample_level(rng: np.random.Generator, j_max: int) -> int:
@@ -29,6 +31,17 @@ def level_schedule(rng: np.random.Generator, j_max: int, T: int) -> np.ndarray:
     """The (T,) level sequence the per-round driver draws from ``rng``.
     Entries lie in {1, …, j_max+1}."""
     return np.array([sample_level(rng, j_max) for _ in range(T)], np.int32)
+
+
+def level_prefix(tree, n_units: int, n_total: int, axis: int = 0):
+    """Prefix-slice each leaf to the level-``n_units`` nested sub-batch of an
+    ``n_total``-unit batch along ``axis``: the first ``n_units / n_total``
+    of the axis (the MLMC levels are nested, the level-(J−1) mini-batch the
+    first half of the level-J one). ``tree`` is a tensor or a nest of
+    dicts, lists and tuples of tensors; the slices are views."""
+    def sl(x):
+        return x.narrow(axis, 0, x.shape[axis] * n_units // n_total)
+    return tree_map(sl, tree)
 
 
 def universal_C(m: int, T: int) -> float:
@@ -90,15 +103,17 @@ def mlmc_combine(g0, gjm1, gj, j: int, cfg: MLMCConfig):
     g0/gjm1/gj: parameter dicts (aggregated gradients at batch sizes 1,
     2^{j-1}, 2^j). ``j`` is host-sampled. Returns (g, info dict)."""
     dev = next(iter(g0.values())).device
+    # True made on the device (a fill, not a copy from the host): the round
+    # runs inside a captured CUDA graph in the compiled driver
+    true = functools.partial(torch.ones, (), dtype=torch.bool, device=dev)
     if j > cfg.j_max or gj is None:
-        info = {"level": j, "failsafe_ok": torch.tensor(True, device=dev),
+        info = {"level": j, "failsafe_ok": true(),
                 "corr_norm": torch.zeros((), device=dev)}
         return g0, info
     diff = {k: gj[k].to(torch.float32) - gjm1[k].to(torch.float32)
             for k in sorted(gj)}
     dn = tree_norm(diff)
-    ok = (dn <= cfg.threshold(j) if cfg.use_failsafe
-          else torch.tensor(True, device=dev))
+    ok = dn <= cfg.threshold(j) if cfg.use_failsafe else true()
     scale = torch.where(ok, 2.0 ** j, 0.0)
     g = {k: (g0[k].to(torch.float32) + scale * diff[k]).to(g0[k].dtype)
          for k in sorted(g0)}

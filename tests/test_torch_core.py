@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.core import agg_engine as j_engine
+from repro.core import attacks as j_attacks
 from repro.core import mlmc as j_mlmc
 from repro.core import robust_train as j_rt
 from repro.core import switching as j_switching
@@ -191,8 +192,8 @@ def test_attack_stack_matches_jax(attack, kwargs):
 
 
 def test_unported_rules_and_attacks_say_so():
-    """Every class rule is ported; the attacks ipm/alie/random/shift are
-    not, and unknown names of either raise."""
+    """Every class rule and every attack is ported: each JAX name resolves,
+    and unknown names of either raise."""
     assert t_engine.get_aggregator("CWTM", delta=0.3).delta == 0.3
     assert t_engine.registered_rules() == j_engine.registered_rules()
     for name in ("krum", "geomed", "mfm", "nnm+cwtm", "nnm+krum"):
@@ -200,8 +201,8 @@ def test_unported_rules_and_attacks_say_so():
     for name in ("nosuch", "nnm+nosuch", "nnm"):
         with pytest.raises(ValueError, match="unknown aggregator"):
             t_engine.get_aggregator(name)
-    for name in ("ipm", "alie", "random", "shift"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_attacks.get_attack(name)
+    assert sorted(t_attacks.ATTACKS) == sorted(j_attacks.ATTACKS)
+    for name in j_attacks.ATTACKS:
+        assert callable(t_attacks.get_attack(name))
     with pytest.raises(ValueError, match="unknown attack"):
         t_attacks.get_attack("nosuch")

@@ -814,3 +814,146 @@ def test_coordinate_wise_rules_one_launch_a_tree(cuda_device, name):
     for key in shapes:
         assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype
         torch.testing.assert_close(got[key].cpu(), want[key], **TOL)
+
+
+# ------------------------------------------ the compiled driver: CUDA graphs
+
+FIG1 = dict(m=17, n_byz=8, K=10, delta=8 / 17 + 1e-3)
+SCAN_LIMITS = {"cwtm": 1e-6, "geomed": 1e-5}  # chip_smoke's scan_path limits
+
+
+def _fig1(dev, rule="cwtm", attack="sign_flip", kwargs=None):
+    from repro_torch import DynaBROConfig, MLMCConfig, make_task
+    task = make_task(FIG1["m"], seed=0, device=dev)
+    cfg = DynaBROConfig(
+        mlmc=MLMCConfig(T=150, m=FIG1["m"], V=5.0, option=1, kappa=1.0,
+                        j_cap=5),
+        aggregator=rule, delta=FIG1["delta"], attack=attack,
+        attack_kwargs=kwargs)
+    return task, cfg
+
+
+def _fig1_switcher():
+    from repro_torch import get_switcher
+    return get_switcher("periodic", FIG1["m"], n_byz=FIG1["n_byz"], K=FIG1["K"])
+
+
+def _launch_counts(run):
+    before = dict(fused.LAUNCHES)
+    out = run()
+    return out, {k: v - before[k] for k, v in fused.LAUNCHES.items()
+                 if v != before[k]}
+
+
+@pytest.mark.parametrize("rule", sorted(SCAN_LIMITS))
+def test_scan_graphs_match_per_round_on_card(cuda_device, rule):
+    """T=24 of the Figure-1 setting: the graph replays against the per-round
+    driver, with the same round logs, evals and kernel launches."""
+    from repro_torch import run_dynabro, run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, eval_fn), cfg = _fig1(cuda_device, rule)
+    (p1, l1, e1), n1 = _launch_counts(lambda: run_dynabro(
+        grad_fn, params0, sgd(0.1), cfg, _fig1_switcher(), sampler, 24,
+        eval_fn=eval_fn, eval_every=12))
+    (p2, l2, e2), n2 = _launch_counts(lambda: run_dynabro_scan(
+        grad_fn, params0, sgd(0.1), cfg, _fig1_switcher(), sampler, 24,
+        eval_fn=eval_fn, eval_every=12, chunk=5))
+    assert [vars(l) for l in l1] == [vars(l) for l in l2]
+    assert e1 == e2 and [t for t, _ in e2] == [12, 24]
+    assert n1 == n2 and n1
+    for k in p1:
+        assert p2[k].device == p1[k].device and p2[k].shape == p1[k].shape
+        torch.testing.assert_close(p2[k], p1[k], rtol=0, atol=SCAN_LIMITS[rule])
+
+
+def test_scan_graphs_reused_across_runs(cuda_device):
+    from repro_torch import make_dynabro_scan_fn, run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+    scan_fn = make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1))
+    runs = []
+    for _ in range(2):
+        runs.append(_launch_counts(lambda: run_dynabro_scan(
+            grad_fn, params0, sgd(0.1), cfg, _fig1_switcher(), sampler, 24,
+            scan_fn=scan_fn)))
+        if len(runs) == 1:
+            captures = scan_fn.captures
+            assert captures == len({l.level for l in runs[0][0][1]})
+    assert scan_fn.captures == captures  # the second run captured nothing
+    (pa, la, _), na = runs[0]
+    (pb, lb, _), nb = runs[1]
+    assert [vars(l) for l in la] == [vars(l) for l in lb] and na == nb
+    for k in pa:
+        assert torch.equal(pa[k], pb[k])
+
+
+def test_random_draws_under_replay_equal_eager(cuda_device):
+    """A round that only draws from the run's generator: the graph replays
+    give the bits of the same draws made eagerly, round after round."""
+    from repro_torch.core.robust_train import ScanFn
+
+    def round_fn(carry, batch, mask, key, generator):
+        noise = torch.randn((3, 1000), generator=generator, device=cuda_device)
+        return ({"x": carry[0]["x"] + noise * (key + 1)}, carry[1]), None, None
+
+    T, seed = 10, 123
+    keys = np.arange(T) % 2
+    carry = ({"x": torch.zeros((3, 1000), device=cuda_device)}, ())
+    masks = np.zeros((T, 3), bool)
+
+    def batches(a, b):
+        return torch.zeros((b - a, 3), device=cuda_device)
+
+    got, _, _ = ScanFn(round_fn, flags=False).run(
+        carry, keys, masks, batches, [4, 7, 10], seed)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    want = carry[0]["x"]
+    for t in range(T):
+        want = want + torch.randn((3, 1000), generator=gen,
+                                  device=cuda_device) * (int(keys[t]) + 1)
+    assert torch.equal(got["x"], want)
+
+
+def test_scan_replay_loop_makes_no_host_sync(cuda_device, monkeypatch):
+    """The replay loop runs under ``set_sync_debug_mode("error")``: a run
+    passes, and a host sync put into the loop raises."""
+    from repro_torch import run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+
+    def run():
+        return run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
+                                _fig1_switcher(), sampler, 12)
+
+    run()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    replay = torch.cuda.CUDAGraph.replay
+
+    def replay_and_sync(self):
+        replay(self)
+        float(torch.ones(1, device=cuda_device).sum())  # a read to the host
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", replay_and_sync)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        run()
+    assert torch.cuda.get_sync_debug_mode() == 0  # restored
+
+
+def test_failed_capture_raises(cuda_device):
+    """A round that reads a value back to the host runs eagerly (the
+    warm-up) but cannot be captured: the compiled driver raises and does
+    not run the rounds eagerly instead."""
+    from repro_torch import make_dynabro_scan_fn, run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+    scan_fn = make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1))
+    round_fn = scan_fn.round_fn
+
+    def syncing_round(*args):
+        out = round_fn(*args)
+        float(out[2])  # the correction norm to the host: refused in a capture
+        return out
+
+    scan_fn.round_fn = syncing_round
+    with pytest.raises(RuntimeError, match="captur"):
+        run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg, _fig1_switcher(),
+                         sampler, 4, scan_fn=scan_fn)
+    assert scan_fn.captures == 0
+    torch.cuda.synchronize()  # the card still takes work
+    assert float(torch.ones(4, device=cuda_device).sum()) == 4.0
