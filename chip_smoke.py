@@ -31,7 +31,13 @@ sources there (``nvcc``, one process per source, all started together, into
      kernel on the card; then calls ``cwtm_masked`` with the trim on the
      card under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync)
      and replays a captured CUDA graph of it after changing the trim in
-     place;
+     place; then the sweep's forms: ``tree_cw_reduce_lanes`` (one launch
+     for every leaf of C in {1, 3, 8, 17} lanes, m in {2, 17, 33, 64}, both
+     dtypes, a trim a lane on the card, out-of-range ones included) against
+     the plain version at 1e-5 and bitwise against one ``tree_cw_reduce``
+     a lane, ``tree_combine_reduce`` with its trim on the card bitwise equal
+     to the int trim, each one CUDA kernel a call, and a graph of both
+     that replays with the trims changed in place;
   4. trains the main path, DynaBRO Algorithm 2 on the paper's Figure-1
      setting (m=17, 8 Byzantine, sign_flip under Periodic(10), CWTM at trim
      8, T=150, sgd(0.1), the 64-128-10 Gaussian-mixture MLP at full width)
@@ -57,12 +63,30 @@ sources there (``nvcc``, one process per source, all started together, into
      statistics on one stack; and the App. E comparison at full width:
      worker momentum (``run_momentum``, ``run_momentum_scan``) under the
      momentum-tailored switcher and shift, beside DynaBRO's compiled driver;
-  7. times each kernel at the main path's shapes beside its plain version,
+  7. drives the ``repro_torch.api`` facade at full width: ``build_session``
+     with CWTM under sign_flip and random, ``Session.run(150)`` bitwise
+     equal to ``run_dynabro_scan``, 150 ``Session.step`` calls bitwise equal
+     to ``run`` (no capture after the first step), a checkpoint at t = 75
+     resumed bitwise (``session_path``); two lane-batched sweeps through
+     ``Session.sweep`` (``sweep_path``): grid 1, 8 CWTM lanes of {sign_flip,
+     ipm} x Periodic K in {10, 25} x trim {8, 6} with one ``cw_reduce``
+     launch an aggregation for all of them, again with the deltas swapped
+     and no capture; grid 2, 10 lanes of {CWTM, NNM+CWTM, Krum, GeoMed,
+     MFM (Option 2)} x K in {10, 25}; every round a graph replay under the
+     sync check, each lane against a lone ``run_dynabro_scan`` (equal logs,
+     params within 1e-6 for CWTM or 1e-5), lanes·rounds/s of each sweep and
+     of its lone runs in turns; and ``run_matrix`` on App. E's quadratic
+     (the README's grid, m=16, T=200) with ``driver="vmap"`` and seeds
+     (0, 1, 2), each seed's rows against ``driver="scan"``
+     (``matrix_path``);
+  8. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
-     tree (``cw_reduce`` beside one launch per leaf), and ``cw_reduce`` also
-     at 64 x 8192 and at 17 x 2^20 in float32 and bfloat16;
-  8. prints the ``{"kernels": [...]}`` summary, then
+     tree (``cw_reduce`` beside one launch per leaf, and its lane form over
+     8 lanes beside one tree call a lane; K5 with its trim on the card), and
+     ``cw_reduce`` also at 64 x 8192 and at 17 x 2^20 in float32 and
+     bfloat16;
+  9. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
@@ -75,8 +99,11 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -84,9 +111,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import (  # noqa: E402
-    LAUNCHES, DynaBROConfig, MLMCConfig, adagrad_norm, get_attack,
-    get_switcher, make_dynabro_scan_fn, make_momentum_scan_fn, make_task,
-    run_dynabro, run_dynabro_scan, run_momentum, run_momentum_scan, sgd,
+    LAUNCHES, AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, SweepSpec, Task,
+    adagrad_norm, build_session, checkpoint_step, format_table, get_attack,
+    get_switcher, load_checkpoint, make_dynabro_scan_fn, make_momentum_scan_fn,
+    make_quadratic_task, make_task, run_dynabro, run_dynabro_scan,
+    run_matrix, run_momentum, run_momentum_scan, save_checkpoint,
+    scenario_grid, sgd,
 )
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -421,12 +451,105 @@ def check_device_trim(dev):
           "trims": [TRIM, 0, 3, 100, -2, TRIM], "bitwise_equal_value_trim": True})
 
 
+LANE_C = (1, 3, 8, 17)
+
+
+def check_lane_kernels(dev):
+    """The sweep's forms of K1/K2 and K5: ``tree_cw_reduce_lanes`` over the
+    main path's four leaves against the plain version of every lane (within
+    TOL) and bitwise against one ``tree_cw_reduce`` launch a lane, one
+    launch a call, for C lanes and m rows, both dtypes, every mode, a trim
+    for all lanes and an int32 a lane on the card (out-of-range ones
+    included); ``tree_combine_reduce`` with its trim an int32 on the card
+    bitwise equal to the int trim; and a captured CUDA graph of each that
+    replays with the trims changed in place. Returns the largest error and
+    the number of comparisons."""
+    gen = torch.Generator().manual_seed(8)
+    widths = [d for _, d in LEAF_SHAPES]
+    worst, n = 0.0, 0
+    for lanes in LANE_C:
+        for m in CW_TREE_M:
+            x32 = [torch.randn(lanes, m, d, generator=gen) * 3.0 for d in widths]
+            trims = [(-2, 0, 3, 100, (m - 1) // 2, TRIM, 1)[c % 7] for c in range(lanes)]
+            t_dev = torch.tensor(trims, dtype=torch.int32, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = [x.to(dtype).to(dev) for x in x32]
+                for mode, trim in [("med", 0), ("mean", 0), ("tm", TRIM),
+                                   ("tm", t_dev)]:
+                    tag = f"lanes C={lanes} m={m} {dtype} {mode} {trims if torch.is_tensor(trim) else trim}"
+                    before = LAUNCHES["cw_reduce"]
+                    outs = fused.tree_cw_reduce_lanes(xs, mode, trim)
+                    assert LAUNCHES["cw_reduce"] == before + 1, tag
+                    for c in range(lanes):
+                        t_c = trims[c] if torch.is_tensor(trim) else trim
+                        one = fused.tree_cw_reduce([x[c] for x in xs], mode, t_c)
+                        for out, o in zip(outs, one):
+                            assert torch.equal(out[c], o), f"lane {c} vs one lane {tag}"
+                    for x, out in zip(xs, outs):
+                        worst = max(worst, check(out, kref.cw_reduce_lanes_ref(x, mode, trim),
+                                                 f"lanes cw_reduce {tag}"))
+                        n += 1
+    # K5 with its trim an int32 on the card: the int trim's bits
+    leaves = [(torch.randn(M, d, generator=gen) * 3.0).to(dev) for d in widths]
+    for k in (M, 64):
+        w = torch.rand(k, M, generator=gen).to(dev)
+        for trim in (-3, 0, 2, TRIM, (k - 1) // 2, 100):
+            t_dev = torch.tensor(trim, dtype=torch.int32, device=dev)
+            got = fused.tree_combine_reduce(leaves, w, "tm", t_dev)
+            want = fused.tree_combine_reduce(leaves, w, "tm", min(max(trim, 0), (k - 1) // 2))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), f"K5 trim {trim} on the card, k={k}"
+                n += 1
+    # graphs that replay with the trims changed in place
+    xs = [(torch.randn(8, M, d, generator=gen) * 3.0).to(dev) for d in widths]
+    t_lanes = torch.full((8,), TRIM, dtype=torch.int32, device=dev)
+    t_k5 = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+    wm = torch.rand(M, M, generator=gen).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused.tree_cw_reduce_lanes(xs, "tm", t_lanes)
+        fused.tree_combine_reduce(leaves, wm, "tm", t_k5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap_lanes = fused.tree_cw_reduce_lanes(xs, "tm", t_lanes)
+        cap_k5 = fused.tree_combine_reduce(leaves, wm, "tm", t_k5)
+    replays = 0
+    for step in range(5):
+        trims = [(c * 3 + step * 5) % 11 - 2 for c in range(8)]
+        t_lanes.copy_(torch.tensor(trims, dtype=torch.int32))
+        t_k5.fill_(trims[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        for c in range(8):
+            one = fused.tree_cw_reduce([x[c] for x in xs], "tm", trims[c])
+            for out, o in zip(cap_lanes, one):
+                assert torch.equal(out[c], o), f"lanes replay {trims}"
+        for a, b in zip(cap_k5, fused.tree_combine_reduce(
+                leaves, wm, "tm", min(max(trims[0], 0), (M - 1) // 2))):
+            assert torch.equal(a, b), f"K5 replay trim {trims[0]}"
+        replays += 1
+    torch.cuda.synchronize()
+    emit({"phase": "lane_kernels", "lanes": LANE_C, "m": CW_TREE_M,
+          "comparisons": n, "max_abs_err": worst, "tolerance": TOL,
+          "bitwise_equal_one_lane_launches": True,
+          "k5_trim_on_card_bitwise_equal_int_trim": True,
+          "graph_replays_trims_changed_in_place": replays})
+    return worst, n
+
+
+PROFILER_WINDOWS = 3
+
+
 def device_kernels_per_call(dev):
     """How many CUDA kernels one call of each distance kernel puts on the
     card, by ``torch.profiler``, at the main path's widest and narrowest
     leaves (a many-block and a one-block plan), and one call of each tree
     form of ``combine.cu`` and of ``tree_cw_reduce`` over the main path's
-    four leaves. Fails unless each is 1."""
+    four leaves. Fails unless each is 1. A profiler window that comes back
+    with no event at all is opened again, up to three times (the profiler
+    has lost a window's events on this card before; ROADMAP.md queue 3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator().manual_seed(4)
@@ -447,15 +570,27 @@ def device_kernels_per_call(dev):
     calls["tree_cw_reduce tm"] = lambda: fused.tree_cw_reduce(leaves, "tm", TRIM)
     calls["tree_cw_reduce tm, trim on the card"] = lambda: fused.tree_cw_reduce(
         leaves, "tm", t_dev)
+    lane_leaves = [torch.randn(8, m, d, generator=gen).to(dev) for m, d in LEAF_SHAPES]
+    t_lanes = torch.arange(8, dtype=torch.int32, device=dev)
+    calls["tree_cw_reduce_lanes C=8 tm, trims on the card"] = (
+        lambda: fused.tree_cw_reduce_lanes(lane_leaves, "tm", t_lanes))
+    calls["tree_combine_reduce k=m tm, trim on the card"] = (
+        lambda: fused.tree_combine_reduce(leaves, wm, "tm", t_dev))
     for key, call in calls.items():
         call()  # warm: the library and the counters exist before the window
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        counts[key] = {"kernels": len(names), "names": names}
+        # a window whose event list comes back empty lost its events (the
+        # call launched: LAUNCHES counts it); open another, at most three
+        for window in range(1, PROFILER_WINDOWS + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        counts[key] = {"kernels": len(names), "names": names,
+                       "windows": window}
     emit({"phase": "device_kernels_per_call", "counts": counts})
     for key, c in counts.items():
         assert c["kernels"] == 1, f"{key}: {c['kernels']} CUDA kernels a call"
@@ -895,7 +1030,249 @@ def momentum_path(task):
     return {"cw_reduce": T}
 
 
-# ------------------------------------------------------------- 7. timing
+# ------------------------------------------------ 7. the session and sweeps
+
+
+def mlp_task(task):
+    """The Figure-1 task as a ``Task`` of the facade (its sampler serves m
+    = M workers; the objective is the final test accuracy)."""
+    params0, grad_fn, sampler, eval_fn = task
+    return Task(params0, grad_fn, lambda m: sampler,
+                lambda p: eval_fn(p, T - 1)["test_acc"])
+
+
+def bitwise(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def session_path(task):
+    """``build_session`` on the Figure-1 task with CWTM under sign_flip and
+    under random (Periodic(10)): ``Session.run(150)`` bitwise equal to
+    ``run_dynabro_scan``; 150 calls of ``Session.step`` bitwise equal to
+    ``run``, each ``StepInfo`` against the run's round logs, with no capture
+    after the first step; a checkpoint of the carry at t = 75, loaded into a
+    new session and stepped to 150, bitwise equal to ``run``."""
+    params0, grad_fn, sampler, _ = task
+    rows = []
+    for attack, kwargs in [("sign_flip", None), ("random", {"scale": 10.0})]:
+        cfg = fig1_cfg("cwtm", attack=attack, kwargs=kwargs)
+
+        def session():
+            return build_session(cfg, mlp_task(task), opt=sgd(0.1),
+                                 switcher=periodic(), seed=0)
+
+        sess = session()
+        reset_launches()
+        with watch_replays() as modes:
+            (p_run, logs, _), run_s = timed(lambda: sess.run(T))
+        run_launches = LAUNCHES["cw_reduce"]
+        p_ref, logs_ref, _ = run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
+                                              periodic(), sampler, T, seed=0)
+        assert bitwise(p_run, p_ref), f"session {attack}: run vs run_dynabro_scan"
+        assert [vars(l) for l in logs] == [vars(l) for l in logs_ref]
+        sched = sess.schedule(T)
+        carry = sess.init_carry()
+        reset_launches()
+        t0 = time.perf_counter()
+        infos, captures = [], None
+        with watch_replays() as step_modes:
+            for t in range(T):
+                carry, info = sess.step(carry, sess.round_inputs(sched, t))
+                infos.append(info)
+                if t == 0:
+                    captures = sess.scan_fn.captures
+                if t == T // 2 - 1:
+                    mid = (carry, t + 1)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        step_launches = LAUNCHES["cw_reduce"]
+        assert bitwise(carry[0], p_run), f"session {attack}: steps vs run"
+        assert [i.failsafe_ok for i in infos] == [l.failsafe_ok for l in logs]
+        assert all(i.corr_norm == 0.0 for i, l in zip(infos, logs)
+                   if l.level > cfg.mlmc.j_max), "beyond-cap corr_norm"
+        assert sess.scan_fn.captures == captures, "a step captured a graph"
+        with tempfile.TemporaryDirectory() as d:
+            path = str(Path(d) / "carry")
+            save_checkpoint(path, mid[0], step=mid[1])
+            resumed_sess = session()
+            resumed = load_checkpoint(path, resumed_sess.init_carry())
+            start = checkpoint_step(path)
+        for t in range(start, T):
+            resumed, _ = resumed_sess.step(
+                resumed, resumed_sess.round_inputs(resumed_sess.schedule(T), t))
+        assert bitwise(resumed[0], p_run), f"session {attack}: resume at {start}"
+        assert len(step_modes) == T == step_modes.count(SYNC_DEBUG_ERROR)
+        assert len(modes) == T and step_launches == run_launches == 440
+        rows.append({"attack": attack, "run_bitwise_equal_run_dynabro_scan": True,
+                     "steps_bitwise_equal_run": True, "step_infos_equal_logs": True,
+                     "captures_after_first_step": captures,
+                     "captures_after_last_step": sess.scan_fn.captures,
+                     "step_replays": len(step_modes),
+                     "checkpoint_step": start, "resume_bitwise_equal_run": True,
+                     "cw_reduce_launches": {"run": run_launches,
+                                            "steps": step_launches},
+                     "run_s": run_s, "steps_s": step_s,
+                     "step_rounds_per_s": T / step_s})
+    emit({"phase": "session_path", "T": T, "m": M, "rule": "cwtm",
+          "rows": rows})
+    return {"cw_reduce": 440}
+
+
+def lone_cfg(base, attack, agg):
+    """The per-cell config of a sweep lane: its attack and rule specs
+    applied to ``base`` (``AggSpec.apply_to``: MFM on Option 2)."""
+    a = AttackSpec.coerce(attack)
+    cfg = dataclasses.replace(base, attack=a.name, attack_kwargs=a.kwargs or None)
+    return AggSpec.coerce(agg).apply_to(cfg)
+
+
+def sweep_grid(name):
+    """(switchers, attacks, aggregators, limit) of a sweep grid."""
+    ks = (10, 25)
+    if name == "grid1":  # CWTM: attack x K x delta (trims 8 and 6)
+        cells = [(a, k, dl) for a in ("sign_flip", "ipm") for k in ks
+                 for dl in (DELTA, 0.35)]
+        return ([("periodic", {"n_byz": N_BYZ, "K": k}) for _, k, _ in cells],
+                [a for a, _, _ in cells],
+                [("cwtm", {"delta": dl}) for _, _, dl in cells], 1e-6)
+    rules = [("cwtm", {"delta": DELTA}), ("nnm+cwtm", {"delta": DELTA}),
+             ("krum", {"delta": DELTA}), ("geomed", {}), ("mfm", {})]
+    cells = [(g, k) for g in rules for k in ks]
+    return ([("periodic", {"n_byz": N_BYZ, "K": k}) for _, k in cells],
+            None, [g for g, _ in cells], 1e-5)
+
+
+SWEEP_TIMED_PAIRS = 2
+
+
+def sweep_path(task, grid):
+    """A lane-batched sweep of ``grid`` on the Figure-1 task through
+    ``Session.sweep``: every round a graph replay under the sync check, one
+    ``cw_reduce`` launch an aggregation for all the CWTM lanes of grid 1,
+    each lane against a lone ``run_dynabro_scan`` of that lane (equal round
+    logs, params within 1e-6 for CWTM and 1e-5 for the geometry rules);
+    grid 1 again with the deltas swapped, with no capture and each lane's
+    bits those of the first sweep's lane of the same delta; and
+    lanes·rounds/s of the sweep beside the sum of the lone compiled runs,
+    in turns."""
+    params0, grad_fn, sampler, _ = task
+    switchers, attacks, aggs, limit = sweep_grid(grid)
+    base = fig1_cfg("cwtm")
+    sess = build_session(base, mlp_task(task), m=M, opt=sgd(0.1), seed=0)
+    spec = SweepSpec(switchers=tuple(switchers),
+                     attacks=None if attacks is None else tuple(attacks),
+                     aggregators=tuple(aggs))
+    C = spec.lanes
+    reset_launches()
+    with watch_replays() as modes:
+        outs, first_s = timed(lambda: sess.sweep(spec, T))
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    lone_fns, lone = {}, []
+
+    def lone_run(c):
+        cfg = lone_cfg(base, attacks[c] if attacks else base.attack, aggs[c])
+        key = (cfg.attack, repr(cfg.attack_kwargs), cfg.aggregator,
+               repr(cfg.aggregator_kwargs), cfg.delta)
+        fn = lone_fns.setdefault(key, make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1)))
+        name, kw = switchers[c]
+        return run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
+                                get_switcher(name, M, **kw), sampler, T,
+                                seed=0, scan_fn=fn)
+
+    diffs = []
+    for c in range(C):
+        p1, l1, _ = lone_run(c)
+        lone.append(p1)
+        p, logs = outs[c]
+        assert [vars(l) for l in logs] == [vars(l) for l in l1], f"{grid} lane {c}: logs"
+        for k in params0:
+            assert p[k].shape == params0[k].shape and bool(torch.isfinite(p[k]).all())
+        diffs.append(max_diff(p, p1))
+    rules = [AggSpec.coerce(g).rule for g in aggs]
+    j_max = base.mlmc.j_max
+    aggregations = sum(3 if 1 <= l.level <= j_max else 1 for l in outs[0][1])
+    row = {"phase": "sweep_path", "grid": grid, "lanes": C, "T": T, "m": M,
+           "lane_specs": [[sw[1]["K"], attacks[c] if attacks else base.attack,
+                           AggSpec.coerce(aggs[c]).label]
+                          for c, sw in enumerate(switchers)],
+           "replays": len(modes),
+           "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+           "launches": launches, "aggregations": aggregations,
+           "max_param_diff_vs_lone": max(diffs), "per_lane_diff": diffs,
+           "bitwise_lanes": sum(d == 0.0 for d in diffs), "limit": limit,
+           "failsafe_ok": [sum(l.failsafe_ok for l in logs) for _, logs in outs],
+           "first_sweep_s": first_s,
+           "capture_s": {str(k): sum(fn.capture_seconds.values())
+                         for k, fn in sess._lane_fns.items()}}
+    groups = len(dict.fromkeys(rules))
+    limits = [1e-6 if r == "cwtm" else 1e-5 for r in rules]
+    if any(d > lim for d, lim in zip(diffs, limits)):
+        emit(row)
+    assert len(modes) == T * groups == row["replays_under_sync_error"], modes
+    for c, (d, lim) in enumerate(zip(diffs, limits)):
+        assert d <= lim, f"{grid} lane {c} ({rules[c]}): params differ by {d}"
+    if grid == "grid1":
+        assert launches == {"cw_reduce": aggregations}, launches
+        assert aggregations == 440, aggregations
+        # the deltas swapped: the same lane groups, new rows, no capture
+        fn = sess._lane_fns[(tuple(dict.fromkeys(attacks)), ("cwtm",))]
+        captures = fn.captures
+        swapped = SweepSpec(switchers=spec.switchers, attacks=spec.attacks,
+                            aggregators=tuple(
+                                ("cwtm", {"delta": 0.35 if g[1]["delta"] == DELTA
+                                          else DELTA}) for g in aggs))
+        with watch_replays() as modes2:
+            outs2 = sess.sweep(swapped, T)
+        assert fn.captures == captures, "the swapped sweep captured"
+        assert len(modes2) == T
+        for c in range(C):  # lane c now runs lane c ^ 1's delta
+            assert bitwise(outs2[c][0], outs[c ^ 1][0]), f"swapped lane {c}"
+        row.update(swapped_captures=fn.captures - captures,
+                   swapped_bitwise_equal=True, captures=captures)
+    pairs = []
+    for _ in range(SWEEP_TIMED_PAIRS):
+        _, sweep_s = timed(lambda: sess.sweep(spec, T))
+        _, lone_s = timed(lambda: [lone_run(c) for c in range(C)])
+        pairs.append({"sweep_lane_rounds_per_s": C * T / sweep_s,
+                      "lone_lane_rounds_per_s": C * T / lone_s,
+                      "sweep_s": sweep_s, "lone_s": lone_s})
+    row["timed_pairs"] = pairs
+    emit(row)
+    return launches
+
+
+def matrix_path(dev):
+    """The README's grid on App. E's quadratic (m=16, T=200, V=3, CWTM under
+    sign_flip and ipm, Periodic(n_byz=3, K=10)): ``run_matrix(driver="vmap",
+    seeds=(0, 1, 2))`` (finite rows, three seeds each), and for each seed s
+    the rows of ``driver="vmap"`` at seed s against ``driver="scan"`` at
+    seed s: equal log columns, finals within 1e-6 relative."""
+    task = make_quadratic_task(device=dev)
+    grid = scenario_grid(["sign_flip", "ipm"],
+                         [("periodic", {"n_byz": 3, "K": 10})], ["cwtm"])
+    kw = dict(m=16, T=200, V=3.0)
+    rows = run_matrix(task, grid, driver="vmap", seeds=(0, 1, 2), **kw)
+    for r in rows:
+        assert r["n_seeds"] == 3 and np.isfinite(r["final_mean"]), r
+    per_seed = []
+    for seed in (0, 1, 2):
+        vm = run_matrix(task, grid, driver="vmap", seed=seed, **kw)
+        sc = run_matrix(task, grid, driver="scan", seed=seed, **kw)
+        for a, b in zip(vm, sc):
+            for key in ("failsafe_trips", "mean_level", "cost"):
+                assert a[key] == b[key], (seed, key, a[key], b[key])
+            rel = abs(a["final"] - b["final"]) / max(abs(b["final"]), 1e-30)
+            assert rel <= 1e-6, (seed, a["final"], b["final"])
+            per_seed.append({"seed": seed, "attack": a["attack"],
+                             "vmap_final": a["final"], "scan_final": b["final"],
+                             "rel_diff": rel})
+    emit({"phase": "matrix_path", **kw, "table": format_table(rows),
+          "rows": [{k: r[k] for k in ("attack", "final_mean", "final_std",
+                                      "final_stderr", "n_seeds")} for r in rows],
+          "vmap_vs_scan": per_seed})
+
+
+# ------------------------------------------------------------- 8. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -1016,6 +1393,21 @@ def timing(dev):
             ("tm per leaf", lambda: [fused.cwtm(x, TRIM) for x in xs])]:
         rows[(case, M, d_all)] = time_case("cw_reduce", case, M, d_all, kern,
                                            *plain, *library, nbytes, ops)
+    # the sweep's lane form: 8 lanes of the tree in one launch, a trim a
+    # lane on the card (grid 1's trims 8 and 6), beside one tree call a lane
+    lanes = 8
+    xl = [(torch.randn(lanes, m, d, generator=gen) * 1e-2).to(dev)
+          for m, d in LEAF_SHAPES]
+    t_l = torch.tensor([TRIM, 6] * (lanes // 2), dtype=torch.int32, device=dev)
+    per_lane = [[x[c] for x in xl] for c in range(lanes)]
+    for case, kern in [
+            ("tm lanes C=8", lambda: fused.tree_cw_reduce_lanes(xl, "tm", t_l)),
+            ("tm tree per lane C=8", lambda: [o for c in range(lanes) for o in (
+                fused.tree_cw_reduce(per_lane[c], "tm", t_l[c]))])]:
+        rows[(case, M, d_all)] = time_case(
+            "cw_reduce", case, M, d_all, kern,
+            lambda: [kref.cw_reduce_lanes_ref(x, "tm", t_l) for x in xl],
+            None, lanes * nbytes, lanes * ops)  # no one call: a trim a lane
     return rows
 
 
@@ -1114,6 +1506,15 @@ def geometry_timing(dev):
         sum(kref.pairwise_sqdist_ref(x) for x in xs), M - aggregators.count_ceil(DELTA * M))
     for (name, case), args in combine_cases(xs, w1, wm, M, d_all, tree=True).items():
         rows[(name, case, M, d_all)] = time_case(name, case, M, d_all, *args)
+    # K5 with its trim on the card (the sweep's NNM+CWTM lanes)
+    t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+    case = "k=m tm tree, trim on the card"
+    rows[("combine_reduce", case, M, d_all)] = time_case(
+        "combine_reduce", case, M, d_all,
+        lambda: fused.tree_combine_reduce(xs, wm, "tm", t_dev),
+        lambda: [kref.combine_reduce_ref(x, wm, "tm", t_dev) for x in xs], None,
+        sum(4 * (M * d + M * M + d) for d in (d for _, d in LEAF_SHAPES)),
+        sum(d * (2 * M * M + sort_ops(M) + M) for _, d in LEAF_SHAPES))
     return rows
 
 
@@ -1207,6 +1608,7 @@ def main():
 
     device_kernels_per_call(dev)
     check_device_trim(dev)
+    lane_worst, _ = check_lane_kernels(dev)
 
     launches = main_path(dev)
     task = make_task(M, seed=0, device=dev)
@@ -1217,6 +1619,10 @@ def main():
         by_path[f"scan {rule}"] = scan_path(task, rule)
     attack_paths(task, dev)
     by_path["momentum"] = momentum_path(task)
+    by_path["session"] = session_path(task)
+    for grid in ("grid1", "grid2"):
+        by_path[f"sweep {grid}"] = sweep_path(task, grid)
+    matrix_path(dev)
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"
@@ -1231,11 +1637,14 @@ def main():
     entries = [kernel_entry(
         "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
         "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
-        max([worst, cw_tree_worst] + [r["max_abs_err"] for r in rows.values()]),
+        max([worst, cw_tree_worst, lane_worst]
+            + [r["max_abs_err"] for r in rows.values()]),
         tree_row, tree_row, "torch.median(x, 0) per leaf",
         shape=[[m, d] for m, d in LEAF_SHAPES], case="tm tree", trim=TRIM,
         per_leaf_ms=rows[("tm per leaf", M, d_all)]["kernel_us"] / 1e3,
-        masked_ms=rows[("tm_masked tree", M, d_all)]["kernel_us"] / 1e3)]
+        masked_ms=rows[("tm_masked tree", M, d_all)]["kernel_us"] / 1e3,
+        lanes8_ms=rows[("tm lanes C=8", M, d_all)]["kernel_us"] / 1e3,
+        tree_per_lane8_ms=rows[("tm tree per lane C=8", M, d_all)]["kernel_us"] / 1e3)]
     for name, case, replaces, path, library in [
             ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
              "nnm+cwtm", "torch.cdist(x, x).square_()"),
@@ -1252,10 +1661,14 @@ def main():
         err = max([r["max_abs_err"] for key, r in geo_rows.items()
                    if key[0] == name] + ([tree_worst[name]] if tree else []))
         shape = ([[m, d] for m, d in LEAF_SHAPES] if tree else [M, 8192])
+        extra = {}
+        if name == "combine_reduce":
+            extra["trim_on_card_ms"] = geo_rows[(
+                name, "k=m tm tree, trim on the card", M, d_all)]["kernel_us"] / 1e3
         entries.append(kernel_entry(
             name, source, replaces, by_path[path][name], launches_of(name), err,
             row, row if library else None, library,
-            check_max_err=geo_worst[name], shape=shape, case=case))
+            check_max_err=geo_worst[name], shape=shape, case=case, **extra))
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

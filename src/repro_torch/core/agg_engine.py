@@ -1,5 +1,5 @@
-"""Backend-dispatching aggregation engine: the class-rule part of the JAX
-package's ``core/agg_engine.py``.
+"""Backend-dispatching aggregation engine: the port of the JAX package's
+``core/agg_engine.py``, class rules and uniform theta forms.
 
 Every rule decomposes into three primitives over a worker stack x: (m, d):
 
@@ -20,14 +20,21 @@ Rules stream leaf by leaf in sorted key order (the JAX package's
 ``jax.tree.leaves`` order); only the (m, m) distance statistics are global,
 and none materializes the flat (m, d_total) matrix. On the kernel backend
 the coordinate-wise reduce and the combine forms take every leaf of a tree
-in one launch.
+in one launch, and the lane reduce every leaf of every lane of a sweep.
+
+The uniform theta forms at the bottom (``agg_theta``, ``uniform_aggregator``,
+``agg_switch``) carry a rule's hyperparameters as a float32 row on the card,
+so a sweep's lanes may differ in rule and hyperparameters: the counts they
+derive (trims, Krum's and NNM's k) stay tensors on the card, with no host
+sync.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import fused as kfused
@@ -155,6 +162,28 @@ def tree_cw_reduce(stacked: Tree, mode: str, trim=0, *,
         outs = [kref.cw_reduce_ref(x, mode, trim) for x in mats]
     return {k: o.reshape(stacked[k].shape[1:]).to(stacked[k].dtype)
             for k, o in zip(keys, outs)}
+
+
+def tree_cw_reduce_lanes(stacked: Tree, mode: str, trim=0, *,
+                         backend: str = "auto") -> Tree:
+    """``tree_cw_reduce`` of every lane of a sweep: leaves (C, m, ...),
+    lane c's worker stack at [c], -> leaves (C, ...). ``trim`` is an int for
+    every lane or an integer tensor of C elements, lane c's at c. One kernel
+    launch for every leaf of every lane on the kernel backend
+    (``kernels/fused.tree_cw_reduce_lanes``), each lane's row the bits of a
+    one-lane ``tree_cw_reduce``; a plain reduce per lane and leaf on the ref
+    backend."""
+    keys = sorted(stacked)
+    if not keys:
+        return {}
+    mats = [stacked[k].reshape(stacked[k].shape[:2] + (-1,))
+            .to(torch.float32).contiguous() for k in keys]
+    if dispatch_backend(backend, mats[0]) == "kernel":
+        outs = kfused.tree_cw_reduce_lanes(mats, mode, trim)
+    else:
+        outs = [kref.cw_reduce_lanes_ref(x, mode, trim) for x in mats]
+    return {k: o.reshape(stacked[k].shape[:1] + stacked[k].shape[2:])
+            .to(stacked[k].dtype) for k, o in zip(keys, outs)}
 
 
 def tree_pairwise_sqdist(stacked: Tree, *, backend: str = "auto") -> torch.Tensor:
@@ -335,3 +364,190 @@ def count_floor(v: float) -> int:
 def trim_count(delta: float, m: int) -> int:
     """⌈δm⌉ clipped to keep at least one row after two-sided trimming."""
     return min(count_ceil(delta * m), (m - 1) // 2)
+
+
+# ==================================================== uniform theta forms
+#
+# The lane-batched sweep (``core/robust_train.py``) runs cells with different
+# rules and hyperparameters as lanes of one compiled round, so a rule's
+# hyperparameters are data: slot i of a lane's theta row holds the i-th
+# hyperparameter of its rule per ``agg_param_spec``. Every rule has the
+# uniform form ``(stacked, n, theta) -> agg_tree`` over one lane (``n`` the
+# mini-batch size, which MFM's auto-tau scales with), and ``agg_switch``
+# applies the forms to the lanes of a sweep, each rule once on its own
+# lanes.
+
+AGG_PARAMS: Dict[str, Tuple[Tuple[str, Any], ...]] = {
+    "mean": (),
+    "cwmed": (),
+    "cwtm": (("delta", 0.25),),
+    "krum": (("delta", 0.25), ("multi", 1)),
+    "geomed": (("iters", 8), ("eps", 1e-8)),
+    "mfm": (("tau", None),),  # None -> NaN sentinel: auto tau from (mlmc, n)
+}
+
+# ``nnm+<base>`` composites prepend NNM's delta and share the slot with the
+# base rule's delta (as ``get_aggregator`` passes one delta to both); the
+# widest row is nnm+geomed's (delta, iters, eps)
+N_AGG_PARAMS = 1 + max(
+    len([p for p in spec if p[0] != "delta"]) for spec in AGG_PARAMS.values())
+
+# (rule, param) pairs where None is NaN in theta, resolved by the uniform
+# form: plain mfm only, as the per-cell driver has an auto tau for it alone
+AGG_NAN_SENTINELS = {("mfm", "tau")}
+
+# the most Weiszfeld steps of the uniform GeoMed form: it runs this many,
+# each gated on the lane's ``iters``
+GEOMED_MAX_ITERS = 8
+
+
+def agg_param_spec(name: str) -> Tuple[Tuple[str, Any], ...]:
+    """(name, default) slots of ``name``'s theta row, composites included."""
+    name = name.lower()
+    if name.startswith("nnm+"):
+        base = agg_param_spec(name[4:])
+        return (("delta", 0.25),) + tuple(p for p in base if p[0] != "delta")
+    if name not in AGG_PARAMS:
+        raise ValueError(f"unknown aggregator {name!r}; known: "
+                         f"{tuple(sorted(AGG_PARAMS))} and nnm+<base>")
+    return AGG_PARAMS[name]
+
+
+def agg_param_names(name: str) -> Tuple[str, ...]:
+    return tuple(p for p, _ in agg_param_spec(name))
+
+
+def agg_theta(name: str,
+              kwargs: Optional[Mapping[str, Any]] = None) -> np.ndarray:
+    """(N_AGG_PARAMS,) float32 hyperparameter row for ``name``: unset
+    parameters take their ``agg_param_spec`` defaults; unknown ones raise,
+    as does ``None`` for a parameter without NaN-sentinel support, or an
+    ``iters`` beyond ``GEOMED_MAX_ITERS``. ``delta`` is accepted (and
+    dropped) for rules without a delta slot, as ``get_aggregator`` takes
+    one for every rule."""
+    kw = dict(kwargs or {})
+    if "delta" not in agg_param_names(name):
+        kw.pop("delta", None)
+    theta = np.zeros(N_AGG_PARAMS, np.float32)
+    for i, (pname, default) in enumerate(agg_param_spec(name)):
+        val = kw.pop(pname, default)
+        if val is None and (name, pname) not in AGG_NAN_SENTINELS:
+            raise TypeError(
+                f"{name!r} aggregator parameter {pname!r} does not accept None")
+        if pname == "iters" and val is not None and val > GEOMED_MAX_ITERS:
+            raise ValueError(
+                f"{name!r}: iters={val} exceeds the uniform form's static "
+                f"unroll bound GEOMED_MAX_ITERS={GEOMED_MAX_ITERS}; use the "
+                f"class rule (get_aggregator) for longer Weiszfeld runs")
+        theta[i] = np.nan if val is None else float(val)
+    if kw:
+        raise TypeError(f"unknown {name!r} aggregator parameter(s): {sorted(kw)}")
+    return theta
+
+
+def traced_count(v) -> torch.Tensor:
+    """⌈v⌉ as an int32 tensor for a float32 count like δ·m held in a tensor
+    (on the card: no host sync), the tensor twin of ``count_ceil`` with the
+    same 1e-5 nudge, so both agree on exact-integer products."""
+    return torch.ceil(torch.as_tensor(v, dtype=torch.float32) - 1e-5).to(
+        torch.int32)
+
+
+def traced_trim_count(delta, m: int) -> torch.Tensor:
+    """``trim_count`` for a delta held in a tensor: the same clipping, on
+    the tensor's device."""
+    return torch.clamp(traced_count(delta * m), 0, (m - 1) // 2)
+
+
+_UNIFORM: Dict[str, Callable] = {}
+_UNIFORM_LANES: Dict[str, Callable] = {}
+
+
+def register_uniform(name: str, builder: Callable,
+                     lanes_builder: Optional[Callable] = None) -> None:
+    """``builder(backend, mlmc) -> fn(stacked, n, theta)`` over one lane; the
+    special key ``"nnm"`` registers the composite ``builder(base_name,
+    backend, mlmc)``. ``lanes_builder(backend, mlmc) -> fn(stacked, n,
+    thetas)`` is the rule over the (C, m, ...) leaves and (C, N_AGG_PARAMS)
+    rows of a sweep's lanes at once, where the rule has one (the
+    coordinate-wise rules: one lane reduce)."""
+    _UNIFORM[name] = builder
+    if lanes_builder is not None:
+        _UNIFORM_LANES[name] = lanes_builder
+
+
+def uniform_aggregator(name: str, *, backend: str = "auto", mlmc=None):
+    """``name`` under the uniform ``(stacked, n, theta)`` signature over one
+    lane (leaves (m, ...), ``theta`` an (N_AGG_PARAMS,) float32 tensor),
+    reading its hyperparameters from theta's slots. ``mlmc`` (an
+    ``MLMCConfig``) supplies MFM's auto threshold ``mlmc.mfm_tau(n)`` where
+    the tau slot holds NaN."""
+    import repro_torch.core.aggregators  # noqa: F401  (registers the forms)
+    name = name.lower()
+    agg_param_spec(name)  # validates the name
+    if name.startswith("nnm+"):
+        return _UNIFORM["nnm"](name[4:], backend, mlmc)
+    return _UNIFORM[name](backend, mlmc)
+
+
+def uniform_lanes(name: str, *, backend: str = "auto", mlmc=None):
+    """``name`` over the lanes of a sweep: ``fn(stacked, n, thetas)`` with
+    leaves (C, m, ...) and thetas (C, N_AGG_PARAMS) -> leaves (C, ...).
+    The coordinate-wise rules reduce every lane in one launch; the other
+    rules run their uniform form once per lane."""
+    import repro_torch.core.aggregators  # noqa: F401  (registers the forms)
+    name = name.lower()
+    if name in _UNIFORM_LANES:
+        return _UNIFORM_LANES[name](backend, mlmc)
+    one = uniform_aggregator(name, backend=backend, mlmc=mlmc)
+
+    def per_lane(stacked, n, thetas):
+        outs = [one({k: v[c] for k, v in stacked.items()}, n, thetas[c])
+                for c in range(thetas.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in sorted(stacked)}
+    return per_lane
+
+
+def _per_level(fn, stacked, n, theta):
+    """Run a uniform form at one batch size, or, when ``n`` is a tuple, at
+    each of several: the leaves of ``stacked`` then carry a leading level
+    axis, and so does the result."""
+    if not isinstance(n, tuple):
+        return fn(stacked, n, theta)
+    outs = [fn({k: v[i] for k, v in stacked.items()}, ni, theta)
+            for i, ni in enumerate(n)]
+    return {k: torch.stack([o[k] for o in outs]) for k in sorted(stacked)}
+
+
+def agg_switch(names: Sequence[str], *, backend: str = "auto",
+               mlmc=None) -> Callable:
+    """``apply(ids, stacked, n, theta)`` over the lanes of a sweep: ``ids``
+    (C host ints) index ``names``, ``stacked`` holds (C, m, ...) leaves
+    (with a leading level axis when ``n`` is a tuple, as in ``_per_level``)
+    and ``theta`` the (C, N_AGG_PARAMS) rows on their device. Each rule runs
+    once on its own lanes (``uniform_lanes``), and the results come back in
+    lane order: nothing runs every rule and selects."""
+    names = tuple(n.lower() for n in names)
+    forms = {nm: uniform_lanes(nm, backend=backend, mlmc=mlmc) for nm in names}
+
+    def apply(ids, stacked, n, theta):
+        ids = [int(i) for i in ids]
+        groups: Dict[str, list] = {}
+        for c, i in enumerate(ids):
+            groups.setdefault(names[i], []).append(c)
+        lane_axis = 1 if isinstance(n, tuple) else 0
+        if len(groups) == 1:
+            (nm,) = groups
+            return _per_level(forms[nm], stacked, n, theta)
+        lanes = [None] * len(ids)
+        for nm, idx in groups.items():
+            sub = {k: torch.stack([v.select(lane_axis, c) for c in idx],
+                                  dim=lane_axis) for k, v in stacked.items()}
+            out = _per_level(forms[nm], sub, n,
+                             torch.stack([theta[c] for c in idx]))
+            for j, c in enumerate(idx):
+                lanes[c] = {k: v.select(lane_axis, j) for k, v in out.items()}
+        return {k: torch.stack([lane[k] for lane in lanes], dim=lane_axis)
+                for k in sorted(stacked)}
+
+    return apply

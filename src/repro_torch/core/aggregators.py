@@ -14,8 +14,11 @@ CWTM, Krum and GeoMed (κ_δ in ``KAPPA``); MFM (Alg. 3 of the paper) is
 deliberately *not* (δ,κ)-robust (App. F.1) but gives the optimal δ²-scaling
 under bounded noise (Lemma 5.1).
 
-The uniform theta forms of the JAX package (its lane-batched sweeps) are not
-ported yet.
+The uniform theta forms at the bottom (the JAX package's lane-batched sweep
+forms) call the same cores with their counts as tensors on the card:
+Krum's and NNM's k from ``traced_count``, the trims from
+``traced_trim_count`` (for ``nnm+cwtm`` read on the card by the mix+reduce
+kernel), GeoMed's steps gated on the lane's ``iters``.
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core.agg_engine import (
-    Aggregator, CoordinateWiseRule, GeometryRule, Tree, count_ceil,
-    pairwise_sqdist, register, tree_combine_reduce, tree_cross_sqdist,
-    tree_pairwise_sqdist, tree_weighted_combine, trim_count,
+    GEOMED_MAX_ITERS, Aggregator, CoordinateWiseRule, GeometryRule, Tree,
+    agg_param_spec, count_ceil, pairwise_sqdist, register, register_uniform,
+    traced_count, traced_trim_count, tree_combine_reduce, tree_cross_sqdist,
+    tree_cw_reduce, tree_cw_reduce_lanes, tree_pairwise_sqdist,
+    tree_weighted_combine, trim_count, uniform_aggregator,
 )
 
 __all__ = ["Mean", "CWMed", "CWTM", "Krum", "GeoMed", "NNM", "MFM", "KAPPA",
@@ -120,19 +125,28 @@ def _mfm_weights(d2: torch.Tensor, tau) -> torch.Tensor:
                        torch.zeros((m,), device=d2.device))
 
 
-def _geomed_tree(stacked: Tree, iters: int, eps: float, backend: str) -> Tree:
+def _geomed_tree(stacked: Tree, iters, eps, backend: str,
+                 unroll: Optional[int] = None) -> Tree:
     """``iters`` Weiszfeld iterations from the mean, the iterate in float32
-    throughout and cast back to each leaf's dtype at the end."""
+    throughout and cast back to each leaf's dtype at the end. An int
+    ``iters`` runs that many steps; a tensor ``iters`` (the uniform form's)
+    runs ``unroll`` steps, step i kept where i < iters."""
     m = next(iter(stacked.values())).shape[0]
     dev = next(iter(stacked.values())).device
+    static = not isinstance(iters, torch.Tensor)
     z = tree_weighted_combine(
         stacked, torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev),
         backend=backend, out_dtype=torch.float32)
-    for _ in range(iters):
+    for i in range(iters if static else unroll):
         d2 = tree_cross_sqdist(stacked, z, backend=backend)
         w = 1.0 / torch.sqrt(d2 + eps)
-        z = tree_weighted_combine(stacked, w / w.sum(), backend=backend,
-                                  out_dtype=torch.float32)
+        zn = tree_weighted_combine(stacked, w / w.sum(), backend=backend,
+                                   out_dtype=torch.float32)
+        if static:
+            z = zn
+        else:
+            live = i < iters
+            z = {k: torch.where(live, zn[k], z[k]) for k in sorted(z)}
     return {k: z[k].to(stacked[k].dtype) for k in sorted(stacked)}
 
 
@@ -264,3 +278,103 @@ register("krum", lambda delta=0.25, tau=None, backend="auto", multi=1:
 register("geomed", lambda delta=0.25, tau=None, backend="auto", iters=8,
          eps=1e-8: GeoMed(int(iters), eps, backend=backend))
 register("mfm", lambda delta=0.25, tau=None, backend="auto": MFM(tau, backend=backend))
+
+
+# ------------------------------------------------- uniform theta forms
+#
+# The ``(stacked, n, theta) -> agg_tree`` forms behind
+# ``agg_engine.uniform_aggregator`` / ``agg_switch``: one lane's rule with its
+# hyperparameters read from theta's slots (per ``agg_param_spec``), calling
+# the class rules' cores. The coordinate-wise rules also take every lane of
+# a sweep at once: one lane reduce (``tree_cw_reduce_lanes``).
+
+_CW_MODES = {"mean": "mean", "cwmed": "med", "cwtm": "tm"}
+
+
+def _uniform_cw(name):
+    """The coordinate-wise rule ``name`` over one lane, and over the lanes
+    of a sweep in one launch, its trim ``traced_trim_count(delta, m)``."""
+    mode = _CW_MODES[name]
+
+    def trim(theta, m):
+        return traced_trim_count(theta[..., 0], m) if mode == "tm" else 0
+
+    def build(backend, mlmc):
+        def fn(stacked, n, theta):
+            m = next(iter(stacked.values())).shape[0]
+            return tree_cw_reduce(stacked, mode, trim(theta, m),
+                                  backend=backend)
+        return fn
+
+    def build_lanes(backend, mlmc):
+        def fn(stacked, n, thetas):
+            m = next(iter(stacked.values())).shape[1]
+            return tree_cw_reduce_lanes(stacked, mode, trim(thetas, m),
+                                        backend=backend)
+        return fn
+
+    return build, build_lanes
+
+
+def _build_krum(backend, mlmc):
+    def fn(stacked, n, theta):
+        m = next(iter(stacked.values())).shape[0]
+        k = torch.clamp(m - traced_count(theta[0] * m) - 2, min=1)
+        d2 = tree_pairwise_sqdist(stacked, backend=backend)
+        return tree_weighted_combine(stacked, _krum_weights(d2, k, theta[1]),
+                                     backend=backend)
+    return fn
+
+
+def _build_geomed(backend, mlmc):
+    def fn(stacked, n, theta):
+        return _geomed_tree(stacked, theta[0], theta[1], backend,
+                            unroll=GEOMED_MAX_ITERS)
+    return fn
+
+
+def _build_mfm(backend, mlmc):
+    def fn(stacked, n, theta):
+        tau = theta[0]
+        if mlmc is not None:  # NaN sentinel -> the Option-2 auto threshold
+            auto = torch.full((), mlmc.mfm_tau(n), dtype=torch.float32,
+                              device=tau.device)
+            tau = torch.where(torch.isnan(tau), auto, tau)
+        d2 = tree_pairwise_sqdist(stacked, backend=backend)
+        return tree_weighted_combine(stacked, _mfm_weights(d2, tau),
+                                     backend=backend)
+    return fn
+
+
+def _build_nnm(base_name, backend, mlmc):
+    base_fn = uniform_aggregator(base_name, backend=backend, mlmc=mlmc)
+    merged = [p for p, _ in agg_param_spec("nnm+" + base_name)]
+    idx = [merged.index(p) for p, _ in agg_param_spec(base_name)]
+    # the base's slots are one run of the composite's: (delta, rest) or
+    # (rest) after NNM's delta
+    lo = idx[0] if idx else 0
+    assert idx == list(range(lo, lo + len(idx))), idx
+    # a coordinate-wise base takes the mix+reduce primitive, as NNM.tree
+    # does; the trim stays on the card, where the kernel reads it
+    mode = _CW_MODES.get(base_name)
+
+    def fn(stacked, n, theta):
+        m = next(iter(stacked.values())).shape[0]
+        k = m - traced_count(theta[0] * m)
+        d2 = tree_pairwise_sqdist(stacked, backend=backend)
+        w = _nnm_weights(d2, k)
+        if mode is not None:
+            trim = traced_trim_count(theta[0], m) if mode == "tm" else 0
+            return tree_combine_reduce(stacked, w, mode=mode, trim=trim,
+                                       backend=backend)
+        mixed = tree_weighted_combine(stacked, w, backend=backend)
+        return base_fn(mixed, n, theta[lo:lo + len(idx)])
+    return fn
+
+
+for _name in _CW_MODES:
+    register_uniform(_name, *_uniform_cw(_name))
+register_uniform("krum", _build_krum)
+register_uniform("geomed", _build_geomed)
+register_uniform("mfm", _build_mfm)
+register_uniform("nnm", _build_nnm)

@@ -21,12 +21,22 @@ and the compiled drivers draw the same numbers in the same order.
 it takes a stack of any leading shape (..., m, ...) with a mask (..., m),
 where the deterministic attacks take one computation's (m, ...) and are
 mapped over the n computations with ``torch.func.vmap``.
+
+The theta forms at the bottom (``ATTACK_PARAMS``, ``attack_theta``,
+``uniform_attack``, ``attack_switch``) carry an attack's parameters as a
+float32 row, so the lanes of a sweep may differ in attack and parameters:
+``attack_switch`` runs each distinct attack once, on its own lanes, with
+their rows as tensors. In a round ``random`` draws its noise once from the
+run's generator, as a lone run does, and every ``random`` lane scales the
+same draw by its own ``scale``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.func import vmap
 
 F32 = torch.float32
 
@@ -81,8 +91,12 @@ def alie_auto_z(mask: torch.Tensor) -> torch.Tensor:
 
 def alie(stacked, mask, generator=None, z: Optional[float] = 1.22):
     """A Little Is Enough (Baruch et al., 2019): mean − z·std, element-wise.
-    ``z=None`` derives z from (m, n_byz) with ``alie_auto_z``."""
-    z_eff = alie_auto_z(mask) if z is None else z
+    ``z=None`` (NaN in a theta row's tensor) derives z from (m, n_byz) with
+    ``alie_auto_z``."""
+    if isinstance(z, torch.Tensor):
+        z_eff = torch.where(torch.isnan(z), alie_auto_z(mask), z)
+    else:
+        z_eff = alie_auto_z(mask) if z is None else z
 
     def leaf(l):
         w = (~mask).to(F32)
@@ -94,21 +108,33 @@ def alie(stacked, mask, generator=None, z: Optional[float] = 1.22):
     return _apply(stacked, mask, leaf)
 
 
+def draw_noise(stacked, generator) -> Dict[str, torch.Tensor]:
+    """The ``random`` attack's draw for ``stacked``: one standard normal
+    float32 draw of each leaf's whole shape from ``generator`` (required),
+    leaves in sorted key order."""
+    if generator is None:
+        raise ValueError("the random attack draws from a torch.Generator: "
+                         "pass generator=")
+    return {k: torch.randn(stacked[k].shape, generator=generator, dtype=F32,
+                           device=stacked[k].device) for k in sorted(stacked)}
+
+
+def apply_noise(stacked, mask, noise, scale):
+    """Byzantine rows of ``stacked`` replaced by ``scale`` times ``noise``
+    (``draw_noise``'s); ``mask`` may carry leading axes: a (..., m) mask over
+    a (..., m, ...) stack."""
+    def leaf(l, z):
+        mk = mask.reshape(mask.shape + (1,) * (l.dim() - mask.dim()))
+        return torch.where(mk, (scale * z).to(l.dtype), l)
+    return {k: leaf(stacked[k], noise[k]) for k in sorted(stacked)}
+
+
 def random_noise(stacked, mask, generator=None, scale: float = 10.0):
     """Gaussian garbage: Byzantine rows replaced by ``scale`` times standard
     normal draws from ``generator`` (required), one draw of each leaf's
     whole shape, leaves in sorted key order. ``mask`` may carry leading
     axes: a (..., m) mask over a (..., m, ...) stack."""
-    if generator is None:
-        raise ValueError("the random attack draws from a torch.Generator: "
-                         "pass generator=")
-
-    def leaf(l):
-        noise = torch.randn(l.shape, generator=generator, dtype=F32,
-                            device=l.device)
-        mk = mask.reshape(mask.shape + (1,) * (l.dim() - mask.dim()))
-        return torch.where(mk, (scale * noise).to(l.dtype), l)
-    return {k: leaf(stacked[k]) for k in sorted(stacked)}
+    return apply_noise(stacked, mask, draw_noise(stacked, generator), scale)
 
 
 def shift(stacked, mask, generator=None, v: float = 1.0):
@@ -140,6 +166,121 @@ def get_attack(name: str, **kw) -> Callable:
     if kw:
         return lambda s, m, generator=None: fn(s, m, generator=generator, **kw)
     return fn
+
+
+# ----------------------------------------------- theta forms (sweep lanes)
+#
+# Slot i of a lane's theta row holds the i-th parameter of its attack per
+# ``ATTACK_PARAMS`` (NaN in alie's z slot encodes ``z=None``); the rows are
+# float32 tensors on the card, so a sweep's lanes may differ in parameters
+# without another graph.
+
+ATTACK_PARAMS: Dict[str, Tuple[Tuple[str, float], ...]] = {
+    "none": (),
+    "sign_flip": (("scale", 1.0),),
+    "ipm": (("eps", 0.1),),
+    "alie": (("z", 1.22),),
+    "random": (("scale", 10.0),),
+    "shift": (("v", 1.0),),
+}
+N_PARAMS = max(len(spec) for spec in ATTACK_PARAMS.values())
+
+# parameters that accept None (NaN in theta, read by the attack); None for
+# any other parameter raises
+NAN_SENTINEL_PARAMS = {("alie", "z")}
+
+
+def attack_theta(name: str,
+                 kwargs: Optional[Mapping[str, Any]] = None) -> np.ndarray:
+    """(N_PARAMS,) float32 parameter row for ``name``: unset parameters take
+    their ``ATTACK_PARAMS`` defaults; unknown ones raise, as does ``None``
+    for a parameter without NaN-sentinel support."""
+    kw = dict(kwargs or {})
+    theta = np.zeros(N_PARAMS, np.float32)
+    for i, (pname, default) in enumerate(ATTACK_PARAMS[name]):
+        val = kw.pop(pname, default)
+        if val is None and (name, pname) not in NAN_SENTINEL_PARAMS:
+            raise TypeError(
+                f"{name!r} attack parameter {pname!r} does not accept None")
+        theta[i] = np.nan if val is None else float(val)
+    if kw:
+        raise TypeError(f"unknown {name!r} attack parameter(s): {sorted(kw)}")
+    return theta
+
+
+def uniform_attack(name: str) -> Callable:
+    """``name`` under the uniform ``(stacked, mask, generator, theta)``
+    signature, reading its parameters from the slots of ``theta`` (a
+    float32 tensor row)."""
+    fn = ATTACKS[name]
+    spec = ATTACK_PARAMS[name]
+
+    def call(stacked, mask, generator, theta):
+        kw = {pname: theta[i] for i, (pname, _) in enumerate(spec)}
+        return fn(stacked, mask, generator=generator, **kw)
+
+    return call
+
+
+def _lane_rows(tree, idx):
+    """The lanes ``idx`` of a dict of (C, ...) leaves, in that order: the
+    leaves themselves for every lane in order, else one copy."""
+    first = next(iter(tree.values()))
+    if list(idx) == list(range(first.shape[0])):
+        return tree
+    return {k: torch.stack([v[c] for c in idx]) for k, v in tree.items()}
+
+
+def attack_switch(names: Sequence[str]) -> Callable:
+    """``apply(ids, stacked, masks, generator, theta)`` over lanes: ``ids``
+    (C host ints) index ``names``; ``stacked`` is a dict of (C, n, m, ...)
+    leaves (each lane's n within-round stacks), ``masks`` (C, n, m) bool and
+    ``theta`` (C, N_PARAMS) float32 on the leaves' device. Each distinct
+    attack runs once, on its own lanes, under ``torch.func.vmap`` over the
+    lanes (and over the n computations) with their theta rows; nothing runs
+    every attack and selects. ``random`` draws one noise stack a round
+    from ``generator``, the draw a lone run makes, and each of its lanes
+    scales it by its own ``scale``. Returns the attacked leaves in lane
+    order."""
+    names = tuple(names)
+    for name in names:
+        if name not in ATTACK_PARAMS:
+            raise ValueError(f"unknown attack {name!r}; known: "
+                             f"{tuple(sorted(ATTACK_PARAMS))}")
+    forms = {name: uniform_attack(name) for name in names}
+
+    def run(name, sub, mk, th, generator):
+        if name == "none":
+            return sub
+        if name == "random":
+            one = {k: v[0] for k, v in sub.items()}
+            noise = draw_noise(one, generator)
+            return vmap(lambda s, m, t: apply_noise(s, m, noise, t[0]))(
+                sub, mk, th)
+        per_unit = vmap(forms[name], in_dims=(0, 0, None, None))
+        return vmap(per_unit, in_dims=(0, 0, None, 0))(sub, mk, generator, th)
+
+    def apply(ids, stacked, masks, generator, theta):
+        ids = [int(i) for i in ids]
+        groups = {}
+        for c, i in enumerate(ids):
+            groups.setdefault(names[i], []).append(c)
+        if len(groups) == 1:
+            (name,) = groups
+            return run(name, stacked, masks, theta, generator)
+        out = {}
+        lanes = [None] * len(ids)
+        for name, idx in groups.items():
+            sub = run(name, _lane_rows(stacked, idx),
+                      torch.stack([masks[c] for c in idx]),
+                      torch.stack([theta[c] for c in idx]), generator)
+            for j, c in enumerate(idx):
+                lanes[c] = {k: v[j] for k, v in sub.items()}
+        for k in sorted(stacked):
+            out[k] = torch.stack([lane[k] for lane in lanes])
+        return out
+
+    return apply
 
 
 # ----------------------------------------------------- App. E dynamic attack

@@ -97,11 +97,16 @@ def tree_norm(tree) -> torch.Tensor:
                           for k in sorted(tree)))
 
 
-def mlmc_combine(g0, gjm1, gj, j: int, cfg: MLMCConfig):
+def mlmc_combine(g0, gjm1, gj, j: int, cfg: MLMCConfig, threshold=None,
+                 norm_fn=None):
     """Combine aggregated level gradients into the MLMC estimate.
 
     g0/gjm1/gj: parameter dicts (aggregated gradients at batch sizes 1,
-    2^{j-1}, 2^j). ``j`` is host-sampled. Returns (g, info dict)."""
+    2^{j-1}, 2^j). ``j`` is host-sampled. Returns (g, info dict).
+    ``threshold`` overrides ``cfg.threshold(j)``: the sweep passes each
+    lane's bound there as a float32 tensor on the card, since lanes mixing
+    MFM with the (δ,κ)-robust rules differ in c_E. ``norm_fn`` overrides
+    ``tree_norm`` on the correction."""
     dev = next(iter(g0.values())).device
     # True made on the device (a fill, not a copy from the host): the round
     # runs inside a captured CUDA graph in the compiled driver
@@ -112,8 +117,10 @@ def mlmc_combine(g0, gjm1, gj, j: int, cfg: MLMCConfig):
         return g0, info
     diff = {k: gj[k].to(torch.float32) - gjm1[k].to(torch.float32)
             for k in sorted(gj)}
-    dn = tree_norm(diff)
-    ok = dn <= cfg.threshold(j) if cfg.use_failsafe else true()
+    dn = (norm_fn or tree_norm)(diff)
+    if threshold is None:
+        threshold = cfg.threshold(j)
+    ok = dn <= threshold if cfg.use_failsafe else true()
     scale = torch.where(ok, 2.0 ** j, 0.0)
     g = {k: (g0[k].to(torch.float32) + scale * diff[k]).to(g0[k].dtype)
          for k in sorted(g0)}

@@ -25,6 +25,15 @@ draw the same schedules before the rounds of a segment run and replay the
 rounds without a host sync; on a card each round replays one captured CUDA
 graph of its level (``ScanFn``). Both draw the ``random`` attack's noise
 from one generator in the same order (``core/attacks.py``).
+
+The lane-batched sweep (``run_dynabro_scan_sweep``) runs C cells that
+share the level plan and the batches as lanes of one compiled round: each
+lane's per-worker gradients, the attacks and rules per lane group from
+their theta rows (``attacks.attack_switch``, ``agg_engine.agg_switch``:
+the coordinate-wise rules in one lane reduce for all their lanes, the
+geometry rules once per lane), ``mlmc_combine`` per lane at its own
+fail-safe bound, and the optimizer under ``vmap``; on a card one CUDA
+graph per level replays the whole lane batch.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +49,7 @@ from torch.func import vmap
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.core import attacks as attacks_lib
-from repro_torch.core.agg_engine import get_aggregator
+from repro_torch.core.agg_engine import agg_switch, agg_theta, get_aggregator
 from repro_torch.core.aggregators import MFM
 from repro_torch.core.mlmc import (
     MLMCConfig, level_prefix, level_schedule, mlmc_combine, round_cost,
@@ -354,15 +363,16 @@ def _segment_bounds(T: int, eval_every: int, chunk: int):
 
 # ------------------------------------------------------ compiled drivers
 
-# the JAX drivers' keywords that the port does not take yet, and the
+# the JAX package's keywords that the port does not take yet, and the
 # ROADMAP.md queue 1 item that brings each
 _UNPORTED = {
     "mesh": "Multi-device",
     "sweep_mesh": "Multi-device",
+    "lane_mesh": "Multi-device",
     "param_specs": "Mode B and the model zoo",
     "microbatch": "Mode B and the model zoo",
-    "lane_attacks": "Lane-batched sweeps",
-    "lane_aggregators": "Lane-batched sweeps",
+    "guard_recompiles": "lint/",
+    "sweep_halving": "Successive-halving sweeps",
 }
 
 
@@ -383,13 +393,25 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(dev)
 
 
-def _graph_shapes(carry, batch_rows, mask_rows) -> tuple:
-    """What a set of level graphs is built for: the device, and the shapes
-    and dtypes of the carry, of a round's batch and of its masks."""
-    def signature(tree):
-        return tuple((tuple(l.shape), l.dtype) for l in tree_leaves(tree))
+def _graph_shapes(carry, batch_rows, mask_rows, lane=None) -> tuple:
+    """What a set of level graphs is built for: the device, the shapes and
+    dtypes of the carry, of a round's batch and of its masks (rows of a
+    schedule: their first axis is the rounds'), and for lanes the plan's
+    groups and the shapes of its rows."""
+    def signature(tree, skip=0):
+        return tuple((tuple(l.shape[skip:]), l.dtype)
+                     for l in tree_leaves(tree))
+    lanes = None if lane is None else (lane[0].key, signature(lane[1]))
     return (tree_leaves(carry)[0].device, signature(carry),
-            signature(batch_rows), tuple(mask_rows.shape[1:]))
+            signature(batch_rows, 1), tuple(mask_rows.shape[1:]), lanes)
+
+
+def _call_round(round_fn, carry, batch, masks, key, generators, lane):
+    """One round: ``round_fn(carry, batch, masks, key, generator)``, or for
+    lanes ``round_fn(carry, batch, masks, key, generators, lane)``."""
+    if lane is None:
+        return round_fn(carry, batch, masks, key, generators[0])
+    return round_fn(carry, batch, masks, key, generators, lane)
 
 
 class _LevelGraphs:
@@ -409,37 +431,47 @@ class _LevelGraphs:
     ``LAUNCHES`` its capture counted, and the driver adds them once for
     every replay; the warm-up's and the capture's own counts are taken back
     out.
+
+    Lanes (``lane``: a ``LanePlan`` and its rows on the card): the rows are
+    static buffers too, copied in before a run, so a sweep with new
+    hyperparameters for the same lane groups replays the same graphs; the
+    flags are (T, C).
     """
 
-    def __init__(self, round_fn, carry, batch_rows, mask_rows, generator,
-                 L: int, T: int, flags: bool):
+    def __init__(self, round_fn, carry, batch_rows, mask_rows, generators,
+                 L: int, T: int, flags: bool, lane=None):
         dev = tree_leaves(carry)[0].device
-        self.round_fn, self.generator, self.flags = round_fn, generator, flags
+        self.round_fn, self.generators, self.flags = round_fn, generators, flags
         self.carry = tree_map(torch.clone, carry)
         self.batches = tree_map(
             lambda l: torch.zeros((L,) + l.shape[1:], dtype=l.dtype, device=dev),
             batch_rows)
         self.masks = torch.zeros((T,) + tuple(mask_rows.shape[1:]),
                                  dtype=torch.bool, device=dev)
-        self.ok = torch.zeros(T, dtype=torch.bool, device=dev)
-        self.corr_norm = torch.zeros(T, dtype=F32, device=dev)
+        self.lane = None if lane is None else (
+            lane[0], {k: v.clone() for k, v in lane[1].items()})
+        flag_shape = () if lane is None else (lane[0].lanes,)
+        self.ok = torch.zeros((T,) + flag_shape, dtype=torch.bool, device=dev)
+        self.corr_norm = torch.zeros((T,) + flag_shape, dtype=F32, device=dev)
         self.sidx = torch.zeros(1, dtype=torch.int64, device=dev)
         self.gidx = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.shapes = _graph_shapes(carry, batch_rows, mask_rows)
+        self.shapes = _graph_shapes(carry, batch_rows, mask_rows, lane)
         self.L, self.T = L, T
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = _capture_stream(dev)
         self.graphs: Dict[Any, tuple] = {}  # key -> (CUDAGraph, launches)
         self.capture_seconds: Dict[Any, float] = {}
 
-    def fits(self, carry, batch_rows, mask_rows, L: int, T: int) -> bool:
-        return (self.shapes == _graph_shapes(carry, batch_rows, mask_rows)
+    def fits(self, carry, batch_rows, mask_rows, L: int, T: int,
+             lane=None) -> bool:
+        return (self.shapes == _graph_shapes(carry, batch_rows, mask_rows, lane)
                 and L <= self.L and T <= self.T)
 
     def _round(self, key):
         batch = tree_map(lambda b: b.index_select(0, self.sidx)[0], self.batches)
         masks = self.masks.index_select(0, self.gidx)[0]
-        return self.round_fn(self.carry, batch, masks, key, self.generator)
+        return _call_round(self.round_fn, self.carry, batch, masks, key,
+                           self.generators, self.lane)
 
     def capture(self, key) -> None:
         """Warm the round up on the capturing stream (the kernels' counters,
@@ -447,6 +479,10 @@ class _LevelGraphs:
         raises: there is no eager fallback."""
         t0 = time.perf_counter()
         before = dict(LAUNCHES)
+        # the warm-up reads the schedules at the round indices: earlier
+        # replays may have left them past the buffers' end
+        self.sidx.zero_()
+        self.gidx.zero_()
         current = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
@@ -454,14 +490,16 @@ class _LevelGraphs:
         current.wait_stream(self.stream)
         LAUNCHES.update(before)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             carry, ok, corr_norm = self._round(key)
             tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
             if self.flags:
-                self.ok.index_copy_(0, self.gidx, ok.reshape(1))
+                row = (1,) + tuple(self.ok.shape[1:])
+                self.ok.index_copy_(0, self.gidx, ok.reshape(row))
                 self.corr_norm.index_copy_(0, self.gidx,
-                                           corr_norm.reshape(1).to(F32))
+                                           corr_norm.reshape(row).to(F32))
             self.gidx.add_(1)
             self.sidx.add_(1)
         launches = {k: v - before[k] for k, v in LAUNCHES.items()
@@ -494,18 +532,26 @@ class ScanFn:
     ``round_fn(carry, batch, masks, key, generator) -> (carry, ok,
     corr_norm)`` runs one round from its padded batch and its masks; ``key``
     is the round's MLMC level (0 in momentum mode, where ``flags`` is False
-    and ok/corr_norm are None).
+    and ok/corr_norm are None). A lane round function (the sweep's,
+    ``lanes`` True) takes ``(carry, batch, masks, key, generators, lane)``
+    instead, ``lane`` a ``LanePlan`` and its rows on the card, and gives
+    (C,) flags.
 
     On the CPU the rounds run eagerly, one call each, and the fail-safe
     flags are read once a segment. On a card each key gets one captured CUDA
-    graph (``_LevelGraphs``), kept for the next run while the shapes fit;
-    ``capture_seconds`` holds each key's warm-up and capture time and
-    ``captures`` counts the captures made.
+    graph (``_LevelGraphs``), kept for the next run while the shapes (and
+    the lane groups) fit; ``capture_seconds`` holds each key's warm-up and
+    capture time and ``captures`` counts the captures made. ``run_round``
+    runs one round through the same graphs (``Session.step``).
     """
+
+    lane_attacks: Optional[tuple] = None
+    lane_aggregators: Optional[tuple] = None
+    lanes = False
 
     def __init__(self, round_fn, flags: bool):
         self.round_fn, self.flags = round_fn, flags
-        self._generators: Dict[torch.device, torch.Generator] = {}
+        self._generators: Dict[torch.device, list] = {}
         self._graphs: Optional[_LevelGraphs] = None
         self.captures = 0
 
@@ -513,29 +559,52 @@ class ScanFn:
     def capture_seconds(self) -> Dict[Any, float]:
         return dict(self._graphs.capture_seconds) if self._graphs else {}
 
-    def run(self, carry, keys, masks: np.ndarray, batches, bounds, seed: int,
-            eval_fn=None, eval_every: int = 0):
+    def generators(self, dev: torch.device, count: int = 1) -> tuple:
+        """The ``random`` attack's generators of runs on ``dev``: one, or one
+        per replicate of a sweep. The level graphs draw from these."""
+        gens = self._generators.setdefault(dev, [])
+        while len(gens) < count:
+            gens.append(torch.Generator(device=dev))
+        return tuple(gens[:count])
+
+    def _level_graphs(self, carry, batch_rows, masks_dev, gens, L, T, lane):
+        """The kept graphs where they fit, else new ones (the old graphs'
+        pool goes first)."""
+        g = self._graphs
+        if g is None or g.generators != gens or not g.fits(
+                carry, batch_rows, masks_dev, L, T, lane):
+            g = self._graphs = None
+            g = self._graphs = _LevelGraphs(self.round_fn, carry, batch_rows,
+                                            masks_dev, gens, L, T, self.flags,
+                                            lane)
+        return g
+
+    def run(self, carry, keys, masks: np.ndarray, batches, bounds, seed,
+            eval_fn=None, eval_every: int = 0, lane=None):
         """Run the rounds of ``keys`` (T,) in the segments ending at
         ``bounds``: ``batches(a, b)`` gives rounds a..b-1's schedule (tree
-        leading (b - a, ...)), ``masks`` (T, ...) every round's. Returns
-        (params, flags (T,) bool array or None, evals)."""
+        leading (b - a, ...)), ``masks`` (T, ...) every round's. ``seed``
+        seeds the generator, or is one seed per replicate of a sweep;
+        ``lane`` is a sweep's ``LanePlan``. Returns (params, flags (T,) or
+        (T, C) bool array or None, evals)."""
         dev = tree_leaves(carry)[0].device
-        gen = self._generators.get(dev)
-        if gen is None:
-            gen = self._generators[dev] = torch.Generator(device=dev)
+        seeds = (seed,) if isinstance(seed, (int, np.integer)) else tuple(seed)
+        gens = self.generators(dev, len(seeds))
         masks_dev = torch.as_tensor(masks, device=dev)
+        lane_dev = None if lane is None else (lane, lane.tensors(dev))
         if dev.type == "cuda":
             return self._run_graphs(carry, keys, masks_dev, batches, bounds,
-                                    seed, gen, eval_fn, eval_every)
-        gen.manual_seed(seed)
+                                    seeds, gens, eval_fn, eval_every, lane_dev)
+        for gen, s in zip(gens, seeds):
+            gen.manual_seed(int(s))
         oks, evals, a = [], [], 0
         for b in bounds:
             seg = batches(a, b)
             flags = []
             for i, t in enumerate(range(a, b)):
-                carry, ok, _ = self.round_fn(
-                    carry, tree_map(lambda l: l[i], seg), masks_dev[t],
-                    int(keys[t]), gen)
+                carry, ok, _ = _call_round(
+                    self.round_fn, carry, tree_map(lambda l: l[i], seg),
+                    masks_dev[t], int(keys[t]), gens, lane_dev)
                 flags.append(ok)
             if self.flags:
                 oks.append(torch.stack(flags).cpu().numpy())
@@ -544,24 +613,23 @@ class ScanFn:
             a = b
         return carry[0], (np.concatenate(oks) if self.flags else None), evals
 
-    def _run_graphs(self, carry, keys, masks_dev, batches, bounds, seed, gen,
-                    eval_fn, eval_every):
+    def _run_graphs(self, carry, keys, masks_dev, batches, bounds, seeds, gens,
+                    eval_fn, eval_every, lane):
         T = len(keys)
         L = max(b - a for a, b in zip([0] + bounds[:-1], bounds))
         seg = batches(0, bounds[0])
         with torch.cuda.device(masks_dev.device):
-            g = self._graphs
-            if g is None or not g.fits(carry, seg, masks_dev, L, T):
-                g = self._graphs = None  # the old graphs' pool goes first
-                g = self._graphs = _LevelGraphs(self.round_fn, carry, seg,
-                                                masks_dev, gen, L, T,
-                                                self.flags)
+            g = self._level_graphs(carry, seg, masks_dev, gens, L, T, lane)
             for key in sorted({int(k) for k in keys} - set(g.graphs)):
                 g.capture(key)
                 self.captures += 1
-            # the captures above warmed up on the generator: seed it after
-            gen.manual_seed(seed)
+            # the captures above warmed up on the generators: seed them after
+            for gen, s in zip(gens, seeds):
+                gen.manual_seed(int(s))
             tree_map(lambda dst, src: dst.copy_(src), g.carry, carry)
+            if lane is not None:
+                for k, v in lane[1].items():
+                    g.lane[1][k].copy_(v)
             g.masks[:T].copy_(masks_dev)
             g.gidx.zero_()
             oks, evals, a = [], [], 0
@@ -580,6 +648,46 @@ class ScanFn:
             params = tree_map(torch.clone, g.carry[0])
         return params, (np.concatenate(oks) if self.flags else None), evals
 
+    def run_round(self, carry, key: int, batch, masks,
+                  state: Optional[torch.Tensor] = None):
+        """One round at level ``key`` from ``carry``, the round's padded
+        ``batch`` and ``masks`` on the carry's device, and ``state``, the
+        generator's ``get_state()`` at the round's start (None: a round that
+        does not draw). Returns (carry, ok, corr_norm, the generator's state
+        after the round).
+
+        The round is the one ``run`` runs: eager on the CPU; on a card the
+        replay of the level's graph among the graphs kept (a run's, or, if
+        none fits, a set built for one round), captured only where the
+        level has none yet. So rounds driven one at a time give the bits of
+        the same rounds inside ``run``."""
+        dev = tree_leaves(carry)[0].device
+        (gen,) = self.generators(dev, 1)
+        if state is not None:
+            gen.set_state(state)
+        if dev.type != "cuda":
+            carry, ok, dn = self.round_fn(carry, batch, masks, key, gen)
+            return carry, ok, dn, gen.get_state()
+        batch_rows = tree_map(lambda l: l[None], batch)
+        with torch.cuda.device(dev):
+            g = self._level_graphs(carry, batch_rows, masks[None], (gen,), 1,
+                                   1, None)
+            if key not in g.graphs:
+                g.capture(key)
+                self.captures += 1
+                if state is not None:
+                    gen.set_state(state)  # the capture warmed up on it
+            tree_map(lambda dst, src: dst.copy_(src), g.carry, carry)
+            tree_map(lambda dst, src: dst[0].copy_(src), g.batches, batch)
+            g.masks[0].copy_(masks)
+            g.gidx.zero_()
+            g.sidx.zero_()
+            g.replay([key])
+            carry = tree_map(torch.clone, g.carry)
+            ok = g.ok[0].clone() if self.flags else None
+            dn = g.corr_norm[0].clone() if self.flags else None
+        return carry, ok, dn, gen.get_state()
+
 
 def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
                          *, mesh=None, worker_axis: str = "workers",
@@ -593,13 +701,17 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     it replays one CUDA graph per level (1 … j_max + 1, or one level 0 with
     ``use_mlmc=False``). Reusable across ``run_dynabro_scan`` calls.
 
-    ``mesh``, ``lane_attacks``, ``lane_aggregators``, ``param_specs``,
-    ``microbatch`` and ``sweep_mesh`` are not ported and raise
-    ``NotImplementedError``; ``worker_axis`` and ``lane_axis`` are taken for
-    the JAX package's signature."""
-    _refuse_unported(mesh=mesh, lane_attacks=lane_attacks,
-                     lane_aggregators=lane_aggregators, param_specs=param_specs,
+    ``lane_attacks`` / ``lane_aggregators`` (sequences of names) build the
+    sweep's lane form instead (``run_dynabro_scan_sweep``): lanes index
+    these names through a ``LanePlan``, and an absent axis runs ``cfg``'s
+    attack or rule on every lane. ``mesh``, ``param_specs``, ``microbatch``
+    and ``sweep_mesh`` are not ported and raise ``NotImplementedError``;
+    ``worker_axis`` and ``lane_axis`` are taken for the JAX package's
+    signature."""
+    _refuse_unported(mesh=mesh, param_specs=param_specs,
                      microbatch=microbatch, sweep_mesh=sweep_mesh)
+    if lane_attacks is not None or lane_aggregators is not None:
+        return _lane_scan_fn(grad_fn, cfg, opt, lane_attacks, lane_aggregators)
     j_max = cfg.mlmc.j_max
     n_max = 2 ** j_max if cfg.use_mlmc else 1
     step = make_dynabro_step(grad_fn, cfg, opt)
@@ -611,7 +723,11 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
             masks[:n], j, generator)
         return (params, opt_state), info["failsafe_ok"], info["corr_norm"]
 
-    return ScanFn(round_fn, flags=True)
+    scan_fn = ScanFn(round_fn, flags=True)
+    # the same cfg's lane form, for sweeps that carry this scan_fn
+    scan_fn.lane_form = functools.cache(
+        functools.partial(_lane_scan_fn, grad_fn, cfg, opt, None, None))
+    return scan_fn
 
 
 def run_dynabro_scan(
@@ -662,6 +778,274 @@ def run_dynabro_scan(
         _segment_bounds(T, eval_every if eval_fn else 0, chunk),
         seed * DYNABRO_SEED, eval_fn, eval_every)
     return params, _round_logs(levels, ok, masks, cfg.mlmc.j_max), evals
+
+
+# ------------------------------------------------------ lane-batched sweeps
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LanePlan:
+    """The lanes of a sweep: each lane's attack and rule as an index into
+    the lane scan_fn's names (host data: they decide which lanes each
+    attack and rule runs on, so they are part of what a set of level graphs
+    is built for), its attack and rule theta rows and its fail-safe
+    coefficient (1+√2)·c_E·C·V (data: copied into the graphs' buffers
+    before a run). With ``replicates`` R > 1 the lanes are cells × R,
+    cell-major: lane c runs replicate c % R."""
+
+    attack_ids: Tuple[int, ...]
+    agg_ids: Tuple[int, ...]
+    attack_theta: np.ndarray  # (C, N_PARAMS) float32
+    agg_theta: np.ndarray  # (C, N_AGG_PARAMS) float32
+    thr_coeff: np.ndarray  # (C,) float32
+    replicates: int = 1
+
+    @property
+    def lanes(self) -> int:
+        return len(self.attack_ids)
+
+    @property
+    def key(self) -> tuple:
+        return (self.attack_ids, self.agg_ids, self.replicates)
+
+    def tensors(self, dev: torch.device) -> Dict[str, torch.Tensor]:
+        """The rows on ``dev``, as the lane round function reads them."""
+        return {name: torch.as_tensor(np.asarray(getattr(self, name),
+                                                 np.float32), device=dev)
+                for name in ("attack_theta", "agg_theta", "thr_coeff")}
+
+    def repeat(self, R: int) -> "LanePlan":
+        """The plan of R replicate lanes per lane (cell-major)."""
+        rep = lambda a: np.repeat(np.asarray(a), R, axis=0)  # noqa: E731
+        return LanePlan(tuple(int(i) for i in rep(self.attack_ids)),
+                        tuple(int(i) for i in rep(self.agg_ids)),
+                        rep(self.attack_theta), rep(self.agg_theta),
+                        rep(self.thr_coeff), R)
+
+
+def _norm_lane_specs(specs):
+    out = []
+    for a in specs:
+        name, kw = (a, {}) if isinstance(a, str) else (a[0], dict(a[1] or {}))
+        out.append((name, kw))
+    return out
+
+
+def _lane_attack_plan(attacks):
+    """Per-lane attack specs (a name or ``(name, kwargs)``) as the lanes'
+    plan: the distinct names in first-appearance order, the (C,) int32
+    lane -> name index and the (C, N_PARAMS) float32 theta rows."""
+    specs = _norm_lane_specs(attacks)
+    names = tuple(dict.fromkeys(name for name, _ in specs))
+    ids = np.array([names.index(name) for name, _ in specs], np.int32)
+    thetas = np.stack([attacks_lib.attack_theta(name, kw)
+                       for name, kw in specs])
+    return names, ids, thetas
+
+
+def _lane_agg_plan(aggregators, cfg: DynaBROConfig):
+    """The rule axis of ``_lane_attack_plan``: the distinct rule names, the
+    lane -> name index, the (C, N_AGG_PARAMS) theta rows, and the (C,)
+    fail-safe coefficients: MFM lanes on Option 2 (c_E = 6√2), every other
+    rule on Option 1 with ``cfg``'s kappa."""
+    specs = _norm_lane_specs(aggregators)
+    names = tuple(dict.fromkeys(name for name, _ in specs))
+    ids = np.array([names.index(name) for name, _ in specs], np.int32)
+    thetas = np.stack([agg_theta(name, kw) for name, kw in specs])
+    coeffs = np.array(
+        [dataclasses.replace(
+            cfg.mlmc, option=2 if name == "mfm" else 1).threshold_coeff
+         for name, _ in specs], np.float32)
+    return names, ids, thetas, coeffs
+
+
+def make_lane_plan(cfg: DynaBROConfig, lanes: int, attacks=None,
+                   aggregators=None):
+    """((attack names, rule names), ``LanePlan``) of ``lanes`` lanes: per
+    lane attack and rule specs, or, for an axis given as None, ``cfg``'s
+    attack (with its kwargs) or rule (with its delta and kwargs, at
+    ``cfg``'s own fail-safe coefficient) on every lane. The names are what
+    the lane scan_fn is built with: None for an axis given as None."""
+    if attacks is not None:
+        atk_names, a_ids, a_th = _lane_attack_plan(attacks)
+    else:
+        atk_names, a_ids = None, np.zeros(lanes, np.int32)
+        a_th = np.stack([attacks_lib.attack_theta(
+            cfg.attack, cfg.attack_kwargs)] * lanes)
+    if aggregators is not None:
+        agg_names, g_ids, g_th, coeffs = _lane_agg_plan(aggregators, cfg)
+    else:
+        kw = dict(cfg.aggregator_kwargs or {})
+        kw.setdefault("delta", cfg.delta)
+        agg_names, g_ids = None, np.zeros(lanes, np.int32)
+        g_th = np.stack([agg_theta(cfg.aggregator, kw)] * lanes)
+        coeffs = np.full(lanes, cfg.mlmc.threshold_coeff, np.float32)
+    plan = LanePlan(tuple(int(i) for i in a_ids), tuple(int(i) for i in g_ids),
+                    a_th, g_th, coeffs)
+    return (atk_names, agg_names), plan
+
+
+def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
+                  lane_attacks, lane_aggregators) -> ScanFn:
+    """The sweep's compiled round loop over a ``LanePlan``'s lanes (the
+    carry's leaves lead with the lane axis C; the batch is shared, or (R,
+    ...) with one per replicate; the masks are (C, n_max, m)):
+
+    - each lane's per-worker gradients as a lone run computes them (one
+      ``vmap`` over its workers and units a lane: batching the lanes too
+      changes the last bits of small products, which flips knife-edge
+      choices such as Krum's);
+    - each attack on its lanes (``attacks.attack_switch``);
+    - each aggregation (levels 0, J−1, J) with each rule on its lanes
+      (``agg_engine.agg_switch``): the coordinate-wise rules in one lane
+      reduce for all their lanes (their trims from the theta rows, on the
+      card), the geometry rules once per lane; outside vmap, since the
+      kernels are ctypes calls;
+    - ``mlmc_combine`` per lane at the lane's own bound, coefficient /
+      √(2^J) in float32 as ``MLMCConfig.threshold`` computes it;
+    - the optimizer under ``vmap``.
+
+    Each lane's round is the round of a lone ``run_dynabro_scan`` of that
+    lane, up to the rounding of the batched attacks and optimizer."""
+    atk_names = (tuple(lane_attacks) if lane_attacks is not None
+                 else (cfg.attack,))
+    agg_names = (tuple(lane_aggregators) if lane_aggregators is not None
+                 else (cfg.aggregator,))
+    j_max = cfg.mlmc.j_max
+    n_max = 2 ** j_max if cfg.use_mlmc else 1
+    atk_apply = attacks_lib.attack_switch(atk_names)
+    agg_apply = agg_switch(agg_names, backend=cfg.agg_backend, mlmc=cfg.mlmc)
+
+    def lane_grads(params, batch, R: int):
+        # each lane's gradients as a lone run computes them, one vmap over
+        # its workers and units: a vmap over the lanes too hands cuBLAS
+        # batched products whose sums differ in the last bit at 1 or 2 units
+        # a worker, enough to flip Krum's choice at its collapse (PERF.md)
+        lanes = []
+        for c in range(next(iter(params.values())).shape[0]):
+            b = batch if R == 1 else tree_map(lambda l: l[c % R], batch)
+            lanes.append(_per_worker_grads(
+                grad_fn, {k: v[c] for k, v in params.items()}, b))
+        return {k: torch.stack([g[k] for g in lanes]) for k in sorted(lanes[0])}
+
+    def lane_attack(plan, grads, masks, gens, theta):
+        # contiguous, so that a lane's attack sees the same layout (and
+        # gives the same bits) in any group of lanes
+        swapped = {k: torch.swapaxes(v, 1, 2).contiguous()
+                   for k, v in grads.items()}
+        R = plan.replicates
+        if R == 1:
+            out = atk_apply(plan.attack_ids, swapped, masks, gens[0], theta)
+        else:  # each replicate's lanes draw from its own generator
+            lanes = [None] * plan.lanes
+            for r in range(R):
+                idx = list(range(r, plan.lanes, R))
+                sub = atk_apply([plan.attack_ids[c] for c in idx],
+                                {k: v[r::R] for k, v in swapped.items()},
+                                masks[r::R], gens[r], theta[r::R])
+                for i, c in enumerate(idx):
+                    lanes[c] = {k: v[i] for k, v in sub.items()}
+            out = {k: torch.stack([lane[k] for lane in lanes])
+                   for k in sorted(swapped)}
+        return {k: torch.swapaxes(v, 1, 2) for k, v in out.items()}
+
+    def round_fn(carry, batch, masks, j, gens, lane):
+        plan, rows = lane
+        params, opt_state = carry
+        n = 2 ** j if (cfg.use_mlmc and 1 <= j <= j_max) else 1
+        b = level_prefix(batch, n, n_max, axis=1 if plan.replicates == 1 else 2)
+        grads = lane_grads(params, b, plan.replicates)  # (C, m, n, ...)
+        grads = lane_attack(plan, grads, masks[:, :n], gens,
+                            rows["attack_theta"])
+        gbar_all = {k: v.mean(2) for k, v in grads.items()}
+        g0_stack = {k: v[:, :, 0] for k, v in grads.items()}
+
+        def agg(stacked, nn):
+            return agg_apply(plan.agg_ids, stacked, nn, rows["agg_theta"])
+
+        def lane_of(tree, c):
+            return {k: v[c] for k, v in tree.items()}
+
+        outs = []
+        if cfg.use_mlmc and 1 <= j <= j_max:
+            gh = {k: v[:, :, : n // 2].mean(2) for k, v in grads.items()}
+            g0, gjm1, gj = agg(g0_stack, 1), agg(gh, n // 2), agg(gbar_all, n)
+            thr = rows["thr_coeff"] / float(np.sqrt(np.float32(2.0 ** j)))
+            for c in range(plan.lanes):
+                outs.append(mlmc_combine(lane_of(g0, c), lane_of(gjm1, c),
+                                         lane_of(gj, c), j, cfg.mlmc,
+                                         threshold=thr[c]))
+        else:
+            g0 = agg(g0_stack, 1)
+            g_all = None if cfg.use_mlmc else agg(gbar_all, n)
+            for c in range(plan.lanes):
+                g, info = mlmc_combine(lane_of(g0, c), None, None, j_max + 1,
+                                       cfg.mlmc)
+                outs.append((g if g_all is None else lane_of(g_all, c), info))
+        g = {k: torch.stack([o[0][k] for o in outs]) for k in sorted(grads)}
+        ok = torch.stack([o[1]["failsafe_ok"] for o in outs])
+        dn = torch.stack([o[1]["corr_norm"] for o in outs])
+        updates, opt_state = vmap(opt.update)(g, opt_state, params)
+        params = vmap(apply_updates)(params, updates)
+        return (params, opt_state), ok, dn
+
+    scan_fn = ScanFn(round_fn, flags=True)
+    scan_fn.lanes = True
+    scan_fn.lane_attacks = (tuple(lane_attacks) if lane_attacks is not None
+                            else None)
+    scan_fn.lane_aggregators = (tuple(lane_aggregators)
+                                if lane_aggregators is not None else None)
+    return scan_fn
+
+
+def run_dynabro_scan_sweep(
+    grad_fn: GradFn,
+    params,
+    opt: Optimizer,
+    cfg: DynaBROConfig,
+    switchers,
+    sample_batches: Callable[[int, int], Any],
+    T: int,
+    seed: int = 0,
+    chunk: int = 0,
+    scan_fn=None,
+    vectorize_batches: bool = True,
+    attacks=None,
+    aggregators=None,
+):
+    """Run C = len(switchers) DynaBRO cells as lanes of one compiled loop.
+
+    Every cell shares ``cfg``, ``seed`` and ``sample_batches`` and differs
+    in its switcher and, with ``attacks`` / ``aggregators`` (one spec per
+    lane: a name or ``(name, kwargs)``), in its attack and its rule and
+    their parameters; MFM lanes run the Option-2 fail-safe coefficient.
+    The level plan and the batches are shared; masks, params, optimizer
+    state and the lanes' theta rows are per lane. Mixed-rule grids run one
+    sub-sweep per distinct rule (with ``scan_fn`` None or a ``{rule:
+    scan_fn}`` mapping), and results come back in the caller's lane order:
+    ``[(params_c, logs_c), ...]``.
+
+    Each lane equals a lone ``run_dynabro_scan`` of that lane's switcher,
+    attack and rule in its round logs (fail-safe flags included) and in
+    every discrete choice, and in its params within the rounding that the
+    lanes' batched attacks and optimizer bring (1e-6 for CWTM, 1e-5 for
+    the geometry rules on the card at the Figure-1 setting). On a card one
+    CUDA graph per level replays the whole lane batch, with one
+    ``cw_reduce`` launch an aggregation for the coordinate-wise lanes.
+
+    A wrapper over ``repro_torch.api.Session.sweep`` with a validated
+    ``SweepSpec``."""
+    from repro_torch.api.session import Session
+    from repro_torch.api.specs import SweepSpec
+    spec = SweepSpec(
+        switchers=tuple(switchers),
+        attacks=None if attacks is None else tuple(attacks),
+        aggregators=None if aggregators is None else tuple(aggregators),
+        scan_fn=scan_fn)
+    sess = Session(cfg, grad_fn=grad_fn, params0=params, opt=opt,
+                   sample_batches=sample_batches, seed=seed,
+                   vectorize_batches=vectorize_batches)
+    return sess.sweep(spec, T, chunk=chunk)
 
 
 def make_momentum_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, lr: float,

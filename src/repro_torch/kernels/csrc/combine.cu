@@ -68,6 +68,11 @@
 //    is the next step if K5 matters.
 //  * Registers: the launch bound is 512 threads, 256 for NP2 = 64, so the
 //    sort's NP2 values stay in registers; the plan keeps S * C within it.
+//  * The reduce's trim: a value (the host clips it), or, with trim_ptr, an
+//    int32 on the card that every thread reads and clips to [0, (k-1)/2]
+//    itself, as cw_reduce.cu does (the traced trim of the JAX package's
+//    _fused_kernel with has_t): no host sync, and a captured graph replays
+//    with the trim changed in place. The same network and sums either way.
 //
 // Tuned plans (kernels/fused.py::combine_plan): R = 1 and C = 64 at k = 1;
 // above it R = 3, C = 32 for the combine and R = 6, C = 32 for the
@@ -166,8 +171,10 @@ template <int R, int LOG2_NP2>
 __global__ void __launch_bounds__(max_threads(LOG2_NP2))
     combine_kernel(const __grid_constant__ LeafTable tab,
                    const float* __restrict__ w, int m, int k, int cols,
-                   int is_bf16, int mode, int trim) {
+                   int is_bf16, int mode, int trim,
+                   const int* __restrict__ trim_ptr) {
   constexpr int NP2 = 1 << LOG2_NP2;
+  if (trim_ptr != nullptr) trim = min(max(__ldg(trim_ptr), 0), (k - 1) / 2);
   extern __shared__ float4 smem[];
   const int groups = (k + R - 1) / R;
   const int m4 = (m + 3) & ~3;
@@ -334,12 +341,12 @@ template <int R>
 cudaError_t launch_rows(int log2_np2, const LeafTable& tab, int blocks,
                         int threads, size_t smem, cudaStream_t stream,
                         const float* w, int m, int k, int cols, int is_bf16,
-                        int mode, int trim) {
+                        int mode, int trim, const int* trim_ptr) {
   switch (log2_np2) {
 #define COMBINE_CASE(L)                                                  \
   case L:                                                                \
     combine_kernel<R, L><<<blocks, threads, smem, stream>>>(             \
-        tab, w, m, k, cols, is_bf16, mode, trim);                        \
+        tab, w, m, k, cols, is_bf16, mode, trim, trim_ptr);              \
     break;
     COMBINE_CASE(0)
     COMBINE_CASE(1)
@@ -363,23 +370,27 @@ cudaError_t launch_rows(int log2_np2, const LeafTable& tab, int blocks,
 // l; out: null, or out[l] its (d[l],) float32 reduction. first_block[l]: the
 // blocks of the leaves before l, each leaf taking ceil(d / cols_per_block).
 // mode -1: write y = w @ x only (y not null); mode 0: the trimmed mean over
-// the sorted rows [trim, k - trim) of y (the median is trim = (k-1)/2);
-// mode 1: the mean of the rows of y (out not null for both; y too when not
-// null). rows_per_thread in {1, 3, 6, 8}; cols_per_block a power of two of
-// at least 32, ceil(k / rows_per_thread) * cols_per_block within the launch
-// bound of next_pow2(k). Returns a cudaError_t.
+// the sorted rows [t, k - t) of y (the median is t = (k-1)/2), t being
+// trim, in [0, (k-1)/2], or, where trim_ptr is not null, the int32 it points
+// to on the card, clipped to that range by the kernel; mode 1: the mean of
+// the rows of y (out not null for both; y too when not null).
+// rows_per_thread in {1, 3, 6, 8}; cols_per_block a power of two of at least
+// 32, ceil(k / rows_per_thread) * cols_per_block within the launch bound of
+// next_pow2(k). Returns a cudaError_t.
 extern "C" int combine_launch(const void* const* x, void* const* y,
                               void* const* out, const int* d,
                               const int* first_block, int n, const void* w,
                               int m, int k, int is_bf16, int mode, int trim,
-                              int rows_per_thread, int cols_per_block,
-                              void* stream) {
+                              const void* trim_ptr, int rows_per_thread,
+                              int cols_per_block, void* stream) {
   const bool reduce = mode != kNoReduce;
   if (w == nullptr || m < 1 || m > kMaxRows || k < 1 || k > kMaxRows ||
       (mode != kNoReduce && mode != kTrimmed && mode != kMean) ||
-      (reduce ? out == nullptr : y == nullptr) || trim < 0 ||
-      (mode == kTrimmed && 2 * trim >= k) || rows_per_thread < 1 ||
-      cols_per_block < kWarp || (cols_per_block & (cols_per_block - 1))) {
+      (reduce ? out == nullptr : y == nullptr) ||
+      (trim_ptr == nullptr &&
+       (trim < 0 || (mode == kTrimmed && 2 * trim >= k))) ||
+      rows_per_thread < 1 || cols_per_block < kWarp ||
+      (cols_per_block & (cols_per_block - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int log2_np2 = 0;
@@ -400,6 +411,7 @@ extern "C" int combine_launch(const void* const* x, void* const* y,
       tab, x, y, reduce ? out : nullptr, d, first_block, n, cols_per_block);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   const float* wf = static_cast<const float*>(w);
+  const int* tp = static_cast<const int*>(trim_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = static_cast<int>(blocks);
   const int threads = groups * cols_per_block;
@@ -408,7 +420,7 @@ extern "C" int combine_launch(const void* const* x, void* const* y,
 #define ROWS_CASE(R)                                                         \
   case R:                                                                    \
     err = launch_rows<R>(log2_np2, tab, nb, threads, smem, s, wf, m, k,      \
-                         cols_per_block, is_bf16, mode, trim);               \
+                         cols_per_block, is_bf16, mode, trim, tp);           \
     break;
     ROWS_CASE(1)
     ROWS_CASE(3)

@@ -1,12 +1,15 @@
 // Coordinate-wise sort-and-reduce of worker stacks: the median, trimmed mean
 // or mean of every column of each leaf x (m, d_l) of a parameter tree,
-// written as (d_l,) float32. One launch covers up to 32 leaves.
+// written as (d_l,) float32, for one stack or for the stacks of every lane
+// of a sweep. One launch covers up to 32 leaves.
 //
 // Replaces the reduce stage of the Pallas TPU kernel
 // src/repro/kernels/fused.py::fused_pass (_fused_kernel -> _reduce_tile ->
 // _sorted_rows / _bitonic_sort_rows): its static-trim forms (cwtm, cwmed,
 // reduce="mean") and its traced-trim form (cwtm_masked), which the JAX
-// package's CoordinateWiseRule.tree calls one leaf at a time.
+// package's CoordinateWiseRule.tree calls one leaf at a time and its
+// lane-batched sweep (core/aggregators.py's uniform CWTM under the lane
+// vmap) calls as one batched pallas_call over the lanes.
 //
 // What bounds it: at the training path's shapes (17 x 9610 f32 over four
 // leaves, 0.65 MB) the launch and one round trip to memory, not the bytes
@@ -40,6 +43,13 @@
 //    the card that every thread reads and clips to [0, (m-1)/2] itself, so
 //    the call makes no host sync and a captured graph replays with the
 //    trim changed in place. Either way the sum is divided by float(m - 2t).
+//  * Lanes of a sweep: a leaf may hold S stacks (S, m, d) one after another,
+//    one per lane, each reduced to its row of the (S, d) output. The leaf
+//    then takes S * ceil(d / C) blocks, and a block finds its stack as
+//    (b - first_block) / ceil(d / C), so one launch reduces every leaf of
+//    every lane. With trim_ptr the trim of stack s is trim_ptr[s]: one
+//    int32 a lane, on the card. S = 1 is the one-stack launch, bit for bit:
+//    a stack's columns see the same network and sums whatever S is.
 //  * Threads with no column (past d) still load nothing and store nothing,
 //    but stay for the shuffles: every lane of a warp takes part.
 //
@@ -100,18 +110,30 @@ constexpr int kWarp = 32;
 template <int LOG2_NP2, int LOG2_L, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     cw_reduce_kernel(const __grid_constant__ LeafTable tab, int m, int cols,
-                     int mode, int trim, const int* __restrict__ trim_ptr) {
+                     int mode, int trim, const int* __restrict__ trim_ptr,
+                     int stacks) {
   constexpr int LOG2_K = LOG2_NP2 - LOG2_L;
   constexpr int K = 1 << LOG2_K;
   constexpr int L = 1 << LOG2_L;
-  if (trim_ptr != nullptr) trim = min(max(__ldg(trim_ptr), 0), (m - 1) / 2);
   const int b = blockIdx.x;
   const Leaf& leaf = leaftab::find_leaf(tab, b);
   const int d = leaf.d;
+  int block = b - leaf.first_block;
+  int stack = 0;
+  if (stacks > 1) {
+    const int per_stack = (d + cols - 1) / cols;
+    stack = block / per_stack;
+    block -= stack * per_stack;
+  }
+  if (trim_ptr != nullptr) {
+    trim = min(max(__ldg(trim_ptr + stack), 0), (m - 1) / 2);
+  }
   const int lane = threadIdx.x & (L - 1);
-  const int col = (b - leaf.first_block) * cols + (threadIdx.x >> LOG2_L);
+  const int col = block * cols + (threadIdx.x >> LOG2_L);
   const bool live = col < d;
-  const T* x = static_cast<const T*>(leaf.x) + col;
+  const T* x = static_cast<const T*>(leaf.x) +
+               static_cast<size_t>(stack) * m * d + col;
+  float* out = leaf.out + static_cast<size_t>(stack) * d;
 
   float v[K];
 #pragma unroll
@@ -122,18 +144,18 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   const float r =
       sortnet::reduce_column<LOG2_NP2, LOG2_L>(v, m, mode, trim, lane);
-  if (live && lane == L - 1) leaf.out[col] = r;
+  if (live && lane == L - 1) out[col] = r;
 }
 
 template <int LOG2_NP2, int LOG2_L, typename T>
 cudaError_t launch_one(const LeafTable& tab, int blocks, int threads,
                        cudaStream_t stream, int m, int cols, int mode,
-                       int trim, const int* trim_ptr) {
+                       int trim, const int* trim_ptr, int stacks) {
   if constexpr (LOG2_L > LOG2_NP2) {
     return cudaErrorInvalidValue;  // more lanes than rows
   } else {
     cw_reduce_kernel<LOG2_NP2, LOG2_L, T><<<blocks, threads, 0, stream>>>(
-        tab, m, cols, mode, trim, trim_ptr);
+        tab, m, cols, mode, trim, trim_ptr, stacks);
     return cudaGetLastError();
   }
 }
@@ -141,12 +163,12 @@ cudaError_t launch_one(const LeafTable& tab, int blocks, int threads,
 template <int LOG2_L, typename T>
 cudaError_t launch_rows(int log2_np2, const LeafTable& tab, int blocks,
                         int threads, cudaStream_t stream, int m, int cols,
-                        int mode, int trim, const int* trim_ptr) {
+                        int mode, int trim, const int* trim_ptr, int stacks) {
   switch (log2_np2) {
 #define CW_REDUCE_CASE(N)                                                 \
   case N:                                                                 \
     return launch_one<N, LOG2_L, T>(tab, blocks, threads, stream, m, cols, \
-                                    mode, trim, trim_ptr);
+                                    mode, trim, trim_ptr, stacks);
     CW_REDUCE_CASE(0)
     CW_REDUCE_CASE(1)
     CW_REDUCE_CASE(2)
@@ -163,14 +185,15 @@ cudaError_t launch_rows(int log2_np2, const LeafTable& tab, int blocks,
 template <typename T>
 cudaError_t launch_lanes(int lanes, int log2_np2, const LeafTable& tab,
                          int blocks, int threads, cudaStream_t stream, int m,
-                         int cols, int mode, int trim, const int* trim_ptr) {
+                         int cols, int mode, int trim, const int* trim_ptr,
+                         int stacks) {
   switch (lanes) {
     case 1:
       return launch_rows<0, T>(log2_np2, tab, blocks, threads, stream, m,
-                               cols, mode, trim, trim_ptr);
+                               cols, mode, trim, trim_ptr, stacks);
     case 2:
       return launch_rows<1, T>(log2_np2, tab, blocks, threads, stream, m,
-                               cols, mode, trim, trim_ptr);
+                               cols, mode, trim, trim_ptr, stacks);
     default:
       return cudaErrorInvalidValue;
   }
@@ -178,19 +201,20 @@ cudaError_t launch_lanes(int lanes, int log2_np2, const LeafTable& tab,
 
 }  // namespace
 
-// One launch over n <= 32 leaves. x[l]: (m, d[l]) row-major, every leaf
-// float32 (is_bf16 == 0) or every leaf bfloat16 (is_bf16 == 1); out[l]: its
-// (d[l],) float32 result. first_block[l]: the blocks of the leaves before l,
-// each leaf taking ceil(d / cols_per_block). mode 0: the trimmed mean over
-// the sorted rows [t, m - t) (the median is t = (m-1)/2); mode 1: the mean.
-// t is trim, in [0, (m-1)/2], or, where trim_ptr is not null, the int32 it
-// points to on the card, clipped to that range by the kernel. lanes 1 or 2,
-// at most next_pow2(m); lanes * cols_per_block a multiple of 32 and at most
+// One launch over n <= 32 leaves of `stacks` stacks each. x[l]: (stacks, m,
+// d[l]) row-major, every leaf float32 (is_bf16 == 0) or every leaf bfloat16
+// (is_bf16 == 1); out[l]: its (stacks, d[l]) float32 result. first_block[l]:
+// the blocks of the leaves before l, each leaf taking stacks *
+// ceil(d / cols_per_block). mode 0: the trimmed mean over the sorted rows
+// [t, m - t) (the median is t = (m-1)/2); mode 1: the mean. t is trim, in
+// [0, (m-1)/2], or, where trim_ptr is not null, the int32 trim_ptr[s] on the
+// card for stack s, clipped to that range by the kernel. lanes 1 or 2, at
+// most next_pow2(m); lanes * cols_per_block a multiple of 32 and at most
 // 256. Returns a cudaError_t.
 extern "C" int cw_reduce_launch(const void* const* x, void* const* out,
                                 const int* d, const int* first_block, int n,
                                 int m, int is_bf16, int mode, int trim,
-                                const void* trim_ptr, int lanes,
+                                const void* trim_ptr, int stacks, int lanes,
                                 int cols_per_block, void* stream) {
   int log2_np2 = 0;
   while ((1 << log2_np2) < m) ++log2_np2;
@@ -199,13 +223,13 @@ extern "C" int cw_reduce_launch(const void* const* x, void* const* out,
       (mode != kTrimmed && mode != kMean) ||
       (trim_ptr == nullptr &&
        (trim < 0 || (mode == kTrimmed && 2 * trim >= m))) ||
-      lanes < 1 || lanes > (1 << log2_np2) || cols_per_block < 1 ||
-      threads % kWarp != 0 || threads > kMaxThreads) {
+      stacks < 1 || lanes < 1 || lanes > (1 << log2_np2) ||
+      cols_per_block < 1 || threads % kWarp != 0 || threads > kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LeafTable tab;
-  const long long blocks = leaftab::fill_table(tab, x, nullptr, out, d,
-                                               first_block, n, cols_per_block);
+  const long long blocks = leaftab::fill_table(
+      tab, x, nullptr, out, d, first_block, n, cols_per_block, stacks);
   if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int* tp = static_cast<const int*>(trim_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -213,9 +237,9 @@ extern "C" int cw_reduce_launch(const void* const* x, void* const* out,
   const cudaError_t err =
       is_bf16 ? launch_lanes<__nv_bfloat16>(lanes, log2_np2, tab, nb, threads,
                                             s, m, cols_per_block, mode, trim,
-                                            tp)
+                                            tp, stacks)
               : launch_lanes<float>(lanes, log2_np2, tab, nb, threads, s, m,
-                                    cols_per_block, mode, trim, tp);
+                                    cols_per_block, mode, trim, tp, stacks);
   return static_cast<int>(err);
 }
 

@@ -4,11 +4,13 @@
 //
 // The caller passes host arrays of the leaves' pointers, widths and first
 // blocks (kernels/fused.py::tree_launches numbers the blocks: leaf l takes
-// ceil(d_l / C) blocks of C columns, numbered on from the blocks of the
-// leaves before it); fill_table checks them and copies them into a
-// LeafTable, which goes to the kernel by value as a __grid_constant__
-// parameter. Nothing is copied to the card before the launch, so a launch
-// can be captured in a CUDA graph and replays bit for bit.
+// S * ceil(d_l / C) blocks of C columns, numbered on from the blocks of the
+// leaves before it, where S is the number of (m, d_l) stacks a leaf holds
+// one after another: 1, or one per lane of a sweep); fill_table checks
+// them and copies them into a LeafTable, which goes to the kernel by value
+// as a __grid_constant__ parameter. Nothing is copied to the card before
+// the launch, so a launch can be captured in a CUDA graph and replays bit
+// for bit.
 
 #pragma once
 
@@ -41,13 +43,14 @@ __device__ __forceinline__ const Leaf& find_leaf(const LeafTable& tab,
 
 // Fill tab from n leaves: x[l] and d[l] >= 1 for every leaf, y[l] where y
 // is not null, out[l] where out is not null, and first_block[l] the blocks
-// of the leaves before l at cols columns a block. Returns the launch's
-// blocks, or -1 where an argument is out of range.
+// of the leaves before l at cols columns a block and stacks stacks a leaf.
+// Returns the launch's blocks, or -1 where an argument is out of range.
 inline long long fill_table(LeafTable& tab, const void* const* x,
                             void* const* y, void* const* out, const int* d,
-                            const int* first_block, int n, int cols) {
+                            const int* first_block, int n, int cols,
+                            int stacks = 1) {
   if (n < 1 || n > kMaxLeaves || x == nullptr || d == nullptr ||
-      first_block == nullptr || cols < 1) {
+      first_block == nullptr || cols < 1 || stacks < 1) {
     return -1;
   }
   tab = LeafTable{};
@@ -62,7 +65,7 @@ inline long long fill_table(LeafTable& tab, const void* const* x,
     tab.leaf[l] = {x[l], y ? static_cast<float*>(y[l]) : nullptr,
                    out ? static_cast<float*>(out[l]) : nullptr, d[l],
                    first_block[l]};
-    blocks += (d[l] + cols - 1) / cols;
+    blocks += static_cast<long long>(stacks) * ((d[l] + cols - 1) / cols);
     if (blocks > INT_MAX) return -1;
   }
   return blocks;

@@ -4,14 +4,16 @@
     stack sorted across its m rows and reduced to one float32, over every
     leaf of a parameter tree in one launch (``tree_cw_reduce``; ``cw_reduce``,
     ``cwmed``, ``cwtm`` and ``cwtm_masked`` are its one-leaf forms), with the
-    trim a value or an int32 on the card that the kernel reads;
+    trim a value or an int32 on the card that the kernel reads, and over
+    every leaf of every lane of a sweep in one launch, a trim a lane
+    (``tree_cw_reduce_lanes``);
   * ``sqdist.cu``: the (m, m) pairwise squared distances
     (``pairwise_sqdist``) and the (m, k) cross squared distances
     (``cross_sqdist``);
   * ``combine.cu``: the weighted combine ``w @ x`` (``weighted_combine``)
-    and its mix-then-reduce form (``combine_reduce``), and both over every
-    leaf of a parameter tree in one launch (``tree_weighted_combine``,
-    ``tree_combine_reduce``).
+    and its mix-then-reduce form (``combine_reduce``, with the trim a value
+    or an int32 on the card), and both over every leaf of a parameter tree
+    in one launch (``tree_weighted_combine``, ``tree_combine_reduce``).
 
 Together they are the CUDA counterpart of the JAX package's two Pallas
 kernels, ``repro/kernels/fused.py::fused_pass`` (every stage) and
@@ -45,11 +47,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP, _IP = ctypes.POINTER(_P), ctypes.POINTER(_I)
 _SIGNATURES = {
     "cw_reduce": {"cw_reduce_launch": [_PP, _PP, _IP, _IP] + [_I] * 5
-                  + [_P, _I, _I, _P]},
+                  + [_P, _I, _I, _I, _P]},
     "sqdist": {"pairwise_sqdist_launch": [_P, _P, _P, _P] + [_I] * 5 + [_P],
                "cross_sqdist_launch": [_P] * 5 + [_I] * 6 + [_P]},
     "combine": {"combine_launch": [_PP, _PP, _PP, _IP, _IP] + [_I, _P]
-                + [_I] * 7 + [_P]},
+                + [_I] * 5 + [_P, _I, _I, _P]},
 }
 
 
@@ -110,13 +112,14 @@ def _is_bf16(x: torch.Tensor) -> int:
     return int(x.dtype == torch.bfloat16)
 
 
-def _clip_trim(mode: Optional[str], trim, k: int) -> int:
+def _clip_trim(mode: Optional[str], trim, k: int):
     """The trim a reduce over k rows applies: (k-1)//2 for the median, the
-    given count clipped to [0, (k-1)//2] for the trimmed mean, else 0."""
+    given count clipped to [0, (k-1)//2] for the trimmed mean (an integer
+    tensor is clipped where it lies, with no host copy), else 0."""
     if mode == "med":
         return (k - 1) // 2
     if mode == "tm":
-        return kref.clip_trim(int(trim), k)
+        return kref.clip_trim(trim if torch.is_tensor(trim) else int(trim), k)
     return 0
 
 
@@ -138,12 +141,13 @@ class TreeLaunch(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def tree_launches(widths: tuple, cols: int) -> tuple:
+def tree_launches(widths: tuple, cols: int, stacks: int = 1) -> tuple:
     """The launches of a tree kernel (``combine.cu``, ``cw_reduce.cu``) over
     leaves of widths ``widths``: empty leaves take none, the others go in
-    order, ``MAX_LEAVES`` to a launch, and a leaf of width d takes
-    ceil(d / cols) blocks of ``cols`` columns, numbered on from the blocks of
-    the leaves before it."""
+    order, ``MAX_LEAVES`` to a launch, and a leaf of width d holding
+    ``stacks`` stacks (one per lane of a sweep) takes stacks * ceil(d /
+    cols) blocks of ``cols`` columns, numbered on from the blocks of the
+    leaves before it."""
     live = [i for i, d in enumerate(widths) if d > 0]
     launches = []
     for g in range(0, len(live), MAX_LEAVES):
@@ -151,19 +155,19 @@ def tree_launches(widths: tuple, cols: int) -> tuple:
         firsts, blocks = [], 0
         for i in leaves:
             firsts.append(blocks)
-            blocks += -(-widths[i] // cols)
+            blocks += stacks * -(-widths[i] // cols)
         launches.append(TreeLaunch(leaves, tuple(firsts), blocks))
     return tuple(launches)
 
 
 @functools.lru_cache(maxsize=4096)
-def _launch_args(widths: tuple, cols: int) -> tuple:
+def _launch_args(widths: tuple, cols: int, stacks: int = 1) -> tuple:
     """``tree_launches`` with each launch's widths and first blocks as the C
     arrays the tree kernels take, built once per tree shape."""
     return tuple((leaves, len(leaves),
                   (_I * len(leaves))(*[widths[i] for i in leaves]),
                   (_I * len(leaves))(*firsts))
-                 for leaves, firsts, _ in tree_launches(widths, cols))
+                 for leaves, firsts, _ in tree_launches(widths, cols, stacks))
 
 
 def _pointers(ts, leaves):
@@ -224,15 +228,62 @@ def cw_reduce_plan(m: int) -> CwReducePlan:
     return CW_REDUCE_TUNED[m > 32]
 
 
-def _check_trim(trim) -> bool:
-    """Whether ``trim`` is a tensor (holding one integer), else an int."""
+def _check_trim(trim, n: int = 1) -> bool:
+    """Whether ``trim`` is a tensor (holding ``n`` integers), else an int."""
     if not isinstance(trim, torch.Tensor):
         return False
-    if (trim.numel() != 1 or trim.dtype.is_floating_point or trim.is_complex()
+    if (trim.numel() != n or trim.dtype.is_floating_point or trim.is_complex()
             or trim.dtype == torch.bool):
-        raise TypeError(f"a trim tensor holds one integer, got "
+        raise TypeError(f"a trim tensor holds {n} integer(s), got "
                         f"{tuple(trim.shape)} {trim.dtype}")
     return True
+
+
+def _device_trim(trim, mode: Optional[str], dev: torch.device, what: str,
+                 n: int = 1) -> Optional[torch.Tensor]:
+    """A trimmed mean's trim as the contiguous int32 tensor of ``n``
+    integers the kernel reads on ``dev`` (another integer type is cast
+    there: no host sync), or None where the trim is a value: not a tensor,
+    or one integer in a CPU tensor. ``n`` integers in a CPU tensor are
+    copied to ``dev``."""
+    if not (_check_trim(trim, n) and mode == "tm"):
+        return None
+    if trim.device.type == "cpu":
+        if n == 1:
+            return None
+        trim = trim.to(dev)
+    if trim.device != dev:
+        raise ValueError(f"{what}: trim on {trim.device}, leaves on {dev}")
+    return trim.reshape(n).to(torch.int32).contiguous()
+
+
+def _cw_reduce(xs, mode: str, trim, plan: Optional[CwReducePlan],
+               stacks: int, what: str, lead: tuple = ()) -> list:
+    """The launches of ``cw_reduce.cu`` over leaves ``xs`` of ``stacks``
+    contiguous (m, d_l) stacks each, with m and the leaves checked; each
+    output ``lead + (d_l,)``."""
+    m = xs[0].shape[-2]
+    dev = xs[0].device
+    t_dev = _device_trim(trim, mode, dev, what, stacks)
+    # the kernel reads the int32s on the card, or takes a value clipped here
+    trim = 0 if t_dev is not None else _clip_trim(mode, trim, m)
+    widths = tuple(x.shape[-1] for x in xs)
+    outs = [torch.empty(lead + (d,), dtype=torch.float32, device=dev)
+            for d in widths]
+    plan = plan or cw_reduce_plan(m)
+    lib = _library("cw_reduce")
+    with _device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for leaves, n, d_arr, first_arr in _launch_args(
+                widths, plan.cols_per_block, stacks):
+            err = lib.cw_reduce_launch(
+                _pointers(xs, leaves), _pointers(outs, leaves), d_arr,
+                first_arr, n, m, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
+                None if t_dev is None else t_dev.data_ptr(), stacks,
+                plan.lanes, plan.cols_per_block, stream)
+            _raise_on("cw_reduce", "cw_reduce_launch", err)
+            LAUNCHES["cw_reduce"] += 1
+    return outs
 
 
 def tree_cw_reduce(xs, mode: str, trim=0,
@@ -249,35 +300,45 @@ def tree_cw_reduce(xs, mode: str, trim=0,
     itself, so the call makes no host sync and can be captured in a CUDA
     graph that replays with the trim changed in place."""
     _check_mode(mode)
-    m = _check_leaves(xs, "tree_cw_reduce")
-    dev = xs[0].device
-    on_device_trim = (_check_trim(trim) and mode == "tm"
-                      and trim.device.type != "cpu")
-    if on_device_trim and trim.device != dev:
-        raise ValueError(f"tree_cw_reduce: trim on {trim.device}, leaves on "
-                         f"{dev}")
+    _check_leaves(xs, "tree_cw_reduce")
+    _check_trim(trim)
     if _on_cpu(xs[0], "tree_cw_reduce", *xs[1:]):
         return [kref.cw_reduce_ref(x, mode, trim) for x in xs]
-    # the kernel reads an int32 on the card (another integer type is cast
-    # there: no host sync), or takes a value clipped here
-    t_dev = trim.to(torch.int32) if on_device_trim else None
-    trim = 0 if on_device_trim else _clip_trim(mode, trim, m)
-    widths = tuple(x.shape[1] for x in xs)
-    outs = [torch.empty(d, dtype=torch.float32, device=dev) for d in widths]
-    plan = plan or cw_reduce_plan(m)
-    lib = _library("cw_reduce")
-    with _device_guard(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for leaves, n, d_arr, first_arr in _launch_args(widths,
-                                                        plan.cols_per_block):
-            err = lib.cw_reduce_launch(
-                _pointers(xs, leaves), _pointers(outs, leaves), d_arr,
-                first_arr, n, m, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
-                None if t_dev is None else t_dev.data_ptr(), plan.lanes,
-                plan.cols_per_block, stream)
-            _raise_on("cw_reduce", "cw_reduce_launch", err)
-            LAUNCHES["cw_reduce"] += 1
-    return outs
+    return _cw_reduce(xs, mode, trim, plan, 1, "tree_cw_reduce")
+
+
+def tree_cw_reduce_lanes(xs, mode: str, trim=0,
+                         plan: Optional[CwReducePlan] = None) -> list:
+    """``tree_cw_reduce`` of every lane of a sweep in one launch (one per
+    ``MAX_LEAVES`` leaves): xs a list of contiguous (C, m, d_l) leaves, lane
+    c's stack of leaf l at ``xs[l][c]``, of one C, m, dtype and device ->
+    one (C, d_l) float32 output per leaf, row c the reduce of lane c.
+
+    ``trim`` (for "tm") is an int for every lane, or an integer tensor of C
+    elements, lane c's trim at c, each clipped to [0, (m-1)//2]; on a card
+    the kernel reads lane c's there, so the call makes no host sync and a
+    captured CUDA graph replays with the trims changed in place. Each row
+    has the bits of a one-lane ``tree_cw_reduce`` call of that lane."""
+    _check_mode(mode)
+    if not xs:
+        raise ValueError("tree_cw_reduce_lanes takes at least one leaf")
+    for x in xs:
+        if x.dim() != 3 or x.shape[:2] != xs[0].shape[:2]:
+            raise ValueError(f"tree_cw_reduce_lanes takes (C, m, d) leaves of "
+                             f"one C and m, got {tuple(x.shape)} and "
+                             f"{tuple(xs[0].shape)}")
+    lanes = xs[0].shape[0]
+    if lanes < 1:
+        raise ValueError("tree_cw_reduce_lanes takes at least one lane")
+    _check_leaves([x[0] for x in xs], "tree_cw_reduce_lanes")
+    for x in xs:
+        if not x.is_contiguous():
+            raise ValueError("tree_cw_reduce_lanes takes contiguous leaves")
+    _check_trim(trim, lanes)
+    if _on_cpu(xs[0], "tree_cw_reduce_lanes", *xs[1:]):
+        return [kref.cw_reduce_lanes_ref(x, mode, trim) for x in xs]
+    return _cw_reduce(xs, mode, trim, plan, lanes, "tree_cw_reduce_lanes",
+                      (lanes,))
 
 
 def cw_reduce(x: torch.Tensor, mode: str, trim=0) -> torch.Tensor:
@@ -507,8 +568,9 @@ def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
     m = _check_leaves(xs, what)
     w = _check_weights(w, m, what)
     k = w.shape[0]
-    trim = _clip_trim(mode, trim, k)
+    _check_trim(trim)
     if _on_cpu(xs[0], what, w, *xs[1:]):
+        trim = _clip_trim(mode, trim, k)
         ys = reds = None
         if write_y:
             ys = [kref.weighted_combine_ref(x, w) for x in xs]
@@ -518,6 +580,9 @@ def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
             reds = [kref.combine_reduce_ref(x, w, mode, trim) for x in xs]
         return ys, reds
     dev = xs[0].device
+    # a tensor trim: the int32 the kernel reads and clips on the card
+    t_dev = _device_trim(trim, mode, dev, what)
+    trim = 0 if t_dev is not None else _clip_trim(mode, trim, k)
     widths = tuple(x.shape[1] for x in xs)
     ys = ([torch.empty((k, d) if keep_rows or k > 1 else (d,),
                        dtype=torch.float32, device=dev) for d in widths]
@@ -534,6 +599,7 @@ def _combine(xs, w: torch.Tensor, mode: Optional[str], trim, write_y: bool,
                 _pointers(xs, leaves), _pointers(ys, leaves),
                 _pointers(reds, leaves), d_arr, first_arr, n,
                 w.data_ptr(), m, k, _is_bf16(xs[0]), _KERNEL_MODE[mode], trim,
+                None if t_dev is None else t_dev.data_ptr(),
                 plan.rows_per_thread, plan.cols_per_block, stream)
             _raise_on("combine", "combine_launch", err)
             LAUNCHES["combine_reduce" if mode else "weighted_combine"] += 1
@@ -547,10 +613,12 @@ def weighted_combine(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def combine_reduce(x: torch.Tensor, w: torch.Tensor, mode: str,
-                   trim: int = 0) -> torch.Tensor:
+                   trim=0) -> torch.Tensor:
     """The k rows of ``w @ x`` (w: (k, m)) reduced per column to (d,)
     float32 by ``mode`` ("med", "tm" with ``trim`` clipped to
-    [0, (k-1)//2], or "mean"), without writing ``w @ x``: one pass over x."""
+    [0, (k-1)//2], or "mean"), without writing ``w @ x``: one pass over x.
+    ``trim`` is an int or an integer tensor of one element, which the kernel
+    reads and clips on the card (no host sync)."""
     _check_mode(mode)
     return _combine([x], w, mode, trim, False, "combine_reduce")[1][0]
 
@@ -564,9 +632,10 @@ def tree_weighted_combine(xs, w: torch.Tensor) -> list:
                     keep_rows=False)[0]
 
 
-def tree_combine_reduce(xs, w: torch.Tensor, mode: str, trim: int = 0) -> list:
+def tree_combine_reduce(xs, w: torch.Tensor, mode: str, trim=0) -> list:
     """``combine_reduce`` of every leaf of a tree in one launch (one per
-    ``MAX_LEAVES`` leaves) -> one (d_l,) float32 output per leaf."""
+    ``MAX_LEAVES`` leaves) -> one (d_l,) float32 output per leaf; ``trim``
+    as in ``combine_reduce``."""
     _check_mode(mode)
     return _combine(xs, w, mode, trim, False, "tree_combine_reduce")[1]
 

@@ -66,6 +66,16 @@ def cw_reduce_ref(x: torch.Tensor, mode: str, trim=0) -> torch.Tensor:
     raise ValueError(f"unknown reduce mode {mode!r}")
 
 
+def cw_reduce_lanes_ref(x: torch.Tensor, mode: str, trim=0) -> torch.Tensor:
+    """x: (C, m, d) -> (C, d), row c the ``cw_reduce_ref`` of lane c's
+    stack x[c]; ``trim`` an int for every lane or an integer tensor of C
+    elements, lane c's at c."""
+    trims = (trim.reshape(-1) if isinstance(trim, torch.Tensor)
+             else [trim] * x.shape[0])
+    return torch.stack([cw_reduce_ref(x[c], mode, trims[c])
+                        for c in range(x.shape[0])])
+
+
 def pairwise_sqdist_ref(x: torch.Tensor) -> torch.Tensor:
     """x: (m, d) -> (m, m) squared L2 distances (float32), by the Gram
     expansion ``sq_i + sq_j - 2 x_i.x_j`` clamped at 0 (NaN stays NaN)."""
@@ -96,7 +106,7 @@ def weighted_combine_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def combine_reduce_ref(x: torch.Tensor, w: torch.Tensor, mode: str,
                        trim=0) -> torch.Tensor:
     """The rows of ``w @ x`` (w: (k, m)) reduced coordinate-wise to (d,) by
-    ``mode``: "med", "tm" (``trim`` rows dropped at each end, clipped as
-    ``clip_trim`` does) or "mean". The two steps the separate plain versions
-    take: combine, then reduce."""
+    ``mode``: "med", "tm" (``trim``, an int or an integer tensor, rows
+    dropped at each end, clipped as ``clip_trim`` does) or "mean". The two
+    steps the separate plain versions take: combine, then reduce."""
     return cw_reduce_ref(weighted_combine_ref(x, w), mode, trim)

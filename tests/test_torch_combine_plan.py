@@ -178,3 +178,23 @@ def test_tree_wrappers_reject(call, err):
     w = torch.ones(2, 5)
     with pytest.raises(err):
         call(xs, w)
+
+
+@pytest.mark.parametrize("k", [1, 5, 9])
+@pytest.mark.parametrize("trim", [-2, 0, 2, 4, 100])
+def test_combine_reduce_tensor_trim_is_the_int_trim(k, trim):
+    """K5's trim as an integer tensor (the sweep's NNM+CWTM lanes read it on
+    the card) gives, on the CPU, the bits of the int trim clipped to
+    [0, (k-1)//2]."""
+    rng = np.random.default_rng(k)
+    xs = [torch.from_numpy(rng.normal(size=(9, d)).astype(np.float32))
+          for d in (5, 1, 12)]
+    w = torch.from_numpy(rng.random((k, 9)).astype(np.float32))
+    want = fused.tree_combine_reduce(xs, w, "tm", min(max(trim, 0), (k - 1) // 2))
+    for dtype in (torch.int32, torch.int64):
+        t = torch.tensor(trim, dtype=dtype)
+        for a, b in zip(fused.tree_combine_reduce(xs, w, "tm", t), want):
+            assert torch.equal(a, b)
+        assert torch.equal(fused.combine_reduce(xs[0], w, "tm", t), want[0])
+    with pytest.raises(TypeError):
+        fused.tree_combine_reduce(xs, w, "tm", torch.tensor([1, 2]))

@@ -957,3 +957,200 @@ def test_failed_capture_raises(cuda_device):
     assert scan_fn.captures == 0
     torch.cuda.synchronize()  # the card still takes work
     assert float(torch.ones(4, device=cuda_device).sum()) == 4.0
+
+
+# ------------------------------------------- the sweep's lane forms (K1/K2, K5)
+
+LANE_WIDTHS = [8192, 1280, 128, 10]
+
+
+def _lane_trims(C, m):
+    return [(-2, 0, 3, 100, (m - 1) // 2, 8, 1)[c % 7] for c in range(C)]
+
+
+@pytest.mark.parametrize("C", [1, 3, 8, 17])
+@pytest.mark.parametrize("m", [2, 17, 33, 64])
+def test_lane_reduce_matches_plain_and_one_lane_launches(cuda_device, C, m):
+    """One launch reduces every leaf of every lane: within 1e-5 of the plain
+    version and bitwise one ``tree_cw_reduce`` a lane, a trim a lane on the
+    card (out-of-range ones clip) or one for every lane, both dtypes."""
+    trims = _lane_trims(C, m)
+    t_dev = torch.tensor(trims, dtype=torch.int32, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [torch.stack(_leaves(m, [d] * C, 31 * C + d, dtype)).to(cuda_device)
+              for d in LANE_WIDTHS]
+        for mode, trim in [("med", 0), ("mean", 0), ("tm", 8), ("tm", t_dev)]:
+            before = fused.LAUNCHES["cw_reduce"]
+            outs = fused.tree_cw_reduce_lanes(xs, mode, trim)
+            assert fused.LAUNCHES["cw_reduce"] == before + 1
+            for x, out in zip(xs, outs):
+                assert out.shape == (C, x.shape[2])
+                torch.testing.assert_close(
+                    out.cpu(), kref.cw_reduce_lanes_ref(x.cpu(), mode, trim.cpu()
+                                                        if torch.is_tensor(trim)
+                                                        else trim), **TOL)
+            for c in range(C):
+                one = fused.tree_cw_reduce([x[c] for x in xs], mode,
+                                           trims[c] if torch.is_tensor(trim) else trim)
+                for out, o in zip(outs, one):
+                    assert torch.equal(out[c], o), (mode, c)
+
+
+@pytest.mark.parametrize("k", [17, 64])
+def test_combine_reduce_trim_on_card_is_the_int_trim(cuda_device, k):
+    xs = [x.to(cuda_device) for x in _leaves(k, LANE_WIDTHS, 3, torch.float32)]
+    w = _tree_weights(k, k, 4).to(cuda_device)
+    for trim in (-3, 0, 2, 8, (k - 1) // 2, 100):
+        for dtype in (torch.int32, torch.int64):
+            t = torch.tensor(trim, dtype=dtype, device=cuda_device)
+            got = fused.tree_combine_reduce(xs, w, "tm", t)
+            want = fused.tree_combine_reduce(xs, w, "tm", min(max(trim, 0),
+                                                             (k - 1) // 2))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (trim, dtype)
+
+
+def test_lane_reduce_and_k5_are_one_kernel_a_call(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    xs = [torch.stack(_leaves(17, [d] * 8, d, torch.float32)).to(cuda_device)
+          for d in LANE_WIDTHS]
+    leaves = [x[0] for x in xs]
+    t8 = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    t1 = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    w = _tree_weights(17, 17, 5).to(cuda_device)
+    for call in (lambda: fused.tree_cw_reduce_lanes(xs, "tm", t8),
+                 lambda: fused.tree_combine_reduce(leaves, w, "tm", t1)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1, names
+
+
+def test_lane_reduce_and_k5_replay_with_trims_changed(cuda_device):
+    xs = [torch.stack(_leaves(17, [d] * 8, d + 1, torch.float32)).to(cuda_device)
+          for d in LANE_WIDTHS]
+    leaves = [x[1] for x in xs]
+    w = _tree_weights(17, 17, 6).to(cuda_device)
+    t8 = torch.full((8,), 8, dtype=torch.int32, device=cuda_device)
+    t1 = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused.tree_cw_reduce_lanes(xs, "tm", t8)
+        fused.tree_combine_reduce(leaves, w, "tm", t1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lanes = fused.tree_cw_reduce_lanes(xs, "tm", t8)
+        k5 = fused.tree_combine_reduce(leaves, w, "tm", t1)
+    for step in range(4):
+        trims = [(3 * c + 5 * step) % 12 - 2 for c in range(8)]
+        t8.copy_(torch.tensor(trims, dtype=torch.int32))
+        t1.fill_(trims[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        for c in range(8):
+            for out, o in zip(lanes, fused.tree_cw_reduce(
+                    [x[c] for x in xs], "tm", trims[c])):
+                assert torch.equal(out[c], o), (step, c)
+        for a, b in zip(k5, fused.tree_combine_reduce(
+                leaves, w, "tm", min(max(trims[1], 0), 8))):
+            assert torch.equal(a, b), step
+
+
+# ------------------------------------------------- sessions and sweeps on the card
+
+
+def test_graphs_capture_a_new_level_after_a_full_run(cuda_device):
+    """A run whose levels the kept graphs lack captures them after a run
+    that left the round indices at the end of the buffers."""
+    from repro_torch import make_dynabro_scan_fn, run_dynabro, run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+    scan_fn = make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1))
+    runs = {}
+    for T, seed in [(8, 0), (8, 5), (8, 11)]:
+        runs[seed] = run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
+                                      _fig1_switcher(), sampler, T, seed=seed,
+                                      scan_fn=scan_fn)
+        want = run_dynabro(grad_fn, params0, sgd(0.1), cfg, _fig1_switcher(),
+                           sampler, T, seed=seed)
+        assert [vars(l) for l in runs[seed][1]] == [vars(l) for l in want[1]]
+        for k in want[0]:
+            assert torch.equal(runs[seed][0][k], want[0][k]), (seed, k)
+
+
+@pytest.mark.parametrize("attack", ["sign_flip", "random"])
+def test_session_steps_replay_the_run_graphs(cuda_device, attack):
+    """``Session.step`` round by round on the card: the bits of ``run``, the
+    run's graphs replayed (no capture), a fresh session's first steps
+    capturing each level once."""
+    from repro_torch import Task, build_session, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(
+        cuda_device, attack=attack, kwargs={"scale": 10.0} if attack == "random"
+        else None)
+    task = Task(params0, grad_fn, lambda m: sampler, lambda p: 0.0)
+    T = 24
+    sess = build_session(cfg, task, opt=sgd(0.1), switcher=_fig1_switcher())
+    p_run, logs, _ = sess.run(T)
+    captures = sess.scan_fn.captures
+    fresh = build_session(cfg, task, opt=sgd(0.1), switcher=_fig1_switcher())
+    for s in (sess, fresh):
+        carry = s.init_carry()
+        sched = s.schedule(T)
+        infos = []
+        for t in range(T):
+            carry, info = s.step(carry, s.round_inputs(sched, t))
+            infos.append(info.failsafe_ok)
+        for k in p_run:
+            assert torch.equal(carry[0][k], p_run[k]), k
+        assert infos == [l.failsafe_ok for l in logs]
+    assert sess.scan_fn.captures == captures
+    assert fresh.scan_fn.captures == len({l.level for l in logs})
+
+
+def test_sweep_lanes_match_lone_runs_on_card(cuda_device):
+    """T=24 of the Figure-1 setting: CWTM lanes under two attacks and two
+    deltas (one ``cw_reduce`` launch an aggregation for all of them) and
+    Krum/NNM+CWTM lanes, each against a lone compiled run; a second sweep
+    with new deltas replays without a capture."""
+    import dataclasses
+
+    from repro_torch import (AggSpec, SweepSpec, Task, build_session,
+                             get_switcher, run_dynabro_scan, sgd)
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+    task = Task(params0, grad_fn, lambda m: sampler, lambda p: 0.0)
+    T = 24
+    sess = build_session(cfg, task, m=FIG1["m"], opt=sgd(0.1))
+    sws = tuple(("periodic", {"n_byz": FIG1["n_byz"], "K": k}) for k in (10, 25) * 2)
+    aggs = (("cwtm", {"delta": FIG1["delta"]}), ("cwtm", {"delta": 0.35}),
+            ("krum", {"delta": FIG1["delta"]}), ("nnm+cwtm", {"delta": 0.35}))
+    attacks = ("sign_flip", "ipm", "sign_flip", "ipm")
+    before = dict(fused.LAUNCHES)
+    cw_only = sess.sweep(SweepSpec(switchers=sws, attacks=attacks,
+                                   aggregators=aggs[:2] * 2), T)
+    launches = fused.LAUNCHES["cw_reduce"] - before["cw_reduce"]
+    levels = [l.level for l in cw_only[0][1]]
+    assert launches == sum(3 if 1 <= j <= cfg.mlmc.j_max else 1 for j in levels)
+    fn = sess._lane_fns[(("sign_flip", "ipm"), ("cwtm",))]
+    captures = fn.captures
+    swapped = (aggs[1], aggs[0]) * 2
+    again = sess.sweep(SweepSpec(switchers=sws, attacks=attacks,
+                                 aggregators=swapped), T)
+    assert fn.captures == captures  # the same lane groups: the same graphs
+    mixed = sess.sweep(SweepSpec(switchers=sws, attacks=attacks, aggregators=aggs), T)
+    for outs, specs in ((cw_only, aggs[:2] * 2), (mixed, aggs), (again, swapped)):
+        for c, (p, logs) in enumerate(outs):
+            spec = AggSpec.coerce(specs[c])
+            lcfg = spec.apply_to(dataclasses.replace(cfg, attack=attacks[c]))
+            p1, l1, _ = run_dynabro_scan(grad_fn, params0, sgd(0.1), lcfg,
+                                         get_switcher("periodic", FIG1["m"],
+                                                      **sws[c][1]),
+                                         sampler, T)
+            assert [vars(l) for l in logs] == [vars(l) for l in l1], c
+            lim = 1e-6 if spec.rule == "cwtm" else 1e-5
+            for k in p1:
+                assert float((p[k] - p1[k]).abs().max()) <= lim, (c, k)

@@ -260,3 +260,67 @@ def test_traced_trim_matches_jax_masked_kernel(trim):
     got = fused.tree_cw_reduce([torch.from_numpy(x)], "tm",
                                torch.tensor(trim, dtype=torch.int32))[0]
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ------------------------------------------------------ the lanes of a sweep
+
+
+@pytest.mark.parametrize("stacks", [1, 2, 8, 17])
+@pytest.mark.parametrize("tree", ["main", "narrow", "empty_leaves", "many"])
+def test_lane_launches_take_stacks_blocks_a_leaf(tree, stacks):
+    """A leaf of ``stacks`` stacks takes stacks * ceil(d / cols) blocks,
+    numbered on from the leaves before it; one stack is the plain plan."""
+    widths, cols = TREES[tree], 64
+    one, many = fused.tree_launches(widths, cols), fused.tree_launches(
+        widths, cols, stacks)
+    assert [l.leaves for l in many] == [l.leaves for l in one]
+    for a, b in zip(one, many):
+        assert b.first_blocks == tuple(stacks * f for f in a.first_blocks)
+        assert b.blocks == stacks * a.blocks
+    if stacks == 1:
+        assert many == one
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_lanes_on_cpu_are_one_tree_call_a_lane(C):
+    """``tree_cw_reduce_lanes`` on the CPU: (C, d) outputs, row c bitwise
+    the ``tree_cw_reduce`` of lane c, with a trim for every lane or one a
+    lane (a tensor of C integers, clipped); ``agg_engine``'s lane form on
+    the plain backend likewise; no launch is counted."""
+    m = 9
+    xs = [torch.stack(_leaves(m, (w,) * C, 5 * C + w)) for w in (7, 1, 12)]
+    trims = [(-2, 0, 3, 100, 4, 1)[c % 6] for c in range(C)]
+    before = dict(fused.LAUNCHES)
+    for mode, trim in [("med", 0), ("mean", 0), ("tm", 3),
+                       ("tm", torch.tensor(trims, dtype=torch.int32))]:
+        outs = fused.tree_cw_reduce_lanes(xs, mode, trim)
+        stacked = dict(zip("abc", xs))
+        via_engine = t_engine.tree_cw_reduce_lanes(stacked, mode, trim,
+                                                   backend="ref")
+        for x, out, key in zip(xs, outs, "abc"):
+            assert out.shape == (C, x.shape[2])
+            assert torch.equal(via_engine[key], out)
+        for c in range(C):
+            t_c = trims[c] if torch.is_tensor(trim) else trim
+            for out, o in zip(outs, fused.tree_cw_reduce([x[c] for x in xs],
+                                                         mode, t_c)):
+                assert torch.equal(out[c], o), (mode, c)
+    assert fused.LAUNCHES == before
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: fused.tree_cw_reduce_lanes([], "tm"), ValueError),
+    (lambda: fused.tree_cw_reduce_lanes([torch.zeros(3, 4)], "tm"), ValueError),
+    (lambda: fused.tree_cw_reduce_lanes(
+        [torch.zeros(2, 3, 4), torch.zeros(3, 3, 4)], "tm"), ValueError),
+    (lambda: fused.tree_cw_reduce_lanes(
+        [torch.zeros(2, 4, 3).transpose(1, 2)], "tm"), ValueError),
+    (lambda: fused.tree_cw_reduce_lanes(
+        [torch.zeros(2, 3, 4)], "tm", torch.tensor([1, 2, 3])), TypeError),
+    (lambda: fused.tree_cw_reduce_lanes(
+        [torch.zeros(2, 3, 4)], "tm", torch.tensor([1.0, 2.0])), TypeError),
+    (lambda: fused.tree_cw_reduce_lanes([torch.zeros(2, 3, 4)], "x"), ValueError),
+])
+def test_lanes_reject(call, err):
+    with pytest.raises(err):
+        call()

@@ -50,3 +50,35 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+FACADE = ["repro_torch.api", "repro_torch.api.session", "repro_torch.api.specs",
+          "repro_torch.core.scenarios", "repro_torch.checkpoint",
+          "repro_torch.checkpoint.checkpoint"]
+
+
+@pytest.mark.parametrize("module", FACADE)
+def test_facade_module_is_checked(module):
+    """The facade's modules are among the sources checked above."""
+    path = PORT.parent.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in SOURCES
+
+
+def test_facade_names_are_the_jax_packages():
+    """``repro_torch.api`` and ``repro_torch`` export every name of
+    ``repro.api.__all__`` and of ``repro.checkpoint``."""
+    import repro.api
+    import repro.checkpoint
+    import repro_torch
+    import repro_torch.api
+    import repro_torch.checkpoint
+    assert set(repro.api.__all__) <= set(repro_torch.api.__all__)
+    assert set(repro.api.__all__) <= set(repro_torch.__all__)
+    assert set(repro.checkpoint.__all__) == set(repro_torch.checkpoint.__all__)
+    assert set(repro.checkpoint.__all__) <= set(repro_torch.__all__)
+    for name in repro_torch.__all__:
+        assert hasattr(repro_torch, name), name
+    for name in ("make_lane_mesh", "make_worker_mesh"):
+        with pytest.raises(NotImplementedError, match="Multi-device"):
+            getattr(repro_torch.api, name)()

@@ -169,12 +169,17 @@ def test_unported_keywords_raise():
         with pytest.raises(NotImplementedError, match=item):
             t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
                                   sampler, 4, **kw)
-    for kw, item in [({"lane_attacks": ["none"]}, "sweeps"),
-                     ({"lane_aggregators": ["cwtm"]}, "sweeps"),
-                     ({"sweep_mesh": object()}, "Multi-device"),
+    for kw, item in [({"sweep_mesh": object()}, "Multi-device"),
                      ({"mesh": object()}, "Multi-device")]:
         with pytest.raises(NotImplementedError, match=item):
             t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, **kw)
+    # the lane keywords are ported: they build the sweep's lane form
+    for kw in ({"lane_attacks": ["none"]}, {"lane_aggregators": ["cwtm"]}):
+        fn = t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, **kw)
+        assert fn.lanes
+        for name in ("lane_attacks", "lane_aggregators"):
+            want = tuple(kw[name]) if name in kw else None
+            assert getattr(fn, name) == want, name
     with pytest.raises(NotImplementedError, match="Multi-device"):
         t_rt.make_momentum_scan_fn(grad_fn, cfg, 0.1, 0.9, mesh=object())
     with pytest.raises(NotImplementedError, match="Multi-device"):
