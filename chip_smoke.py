@@ -23,7 +23,10 @@ sources there (``nvcc``, one process per source, all started together, into
      k in {1, 17, 64} and m in {2, 17, 33, 64}, every reduce mode, both
      dtypes, the main path's four-leaf tree, one leaf, more leaves than a
      launch takes, and widths of 1 and not a multiple of 4; and every plan
-     of ``cw_reduce.cu`` against the default plan's bits;
+     of ``cw_reduce.cu`` against the default plan's bits; and
+     ``tree_cw_reduce`` over the model zoo's 11-leaf gradient tree at
+     SmolLM-360M's widths (17 x 125.8M float32) against the plain version
+     leaf by leaf and bitwise against one launch per leaf;
   3. runs one ``pairwise_sqdist`` and one ``cross_sqdist`` call at 17 x 8192
      and at 17 x 10, and one call of each tree form of ``combine.cu`` and of
      ``tree_cw_reduce`` over the main path's four leaves, under
@@ -79,14 +82,22 @@ sources there (``nvcc``, one process per source, all started together, into
      (the README's grid, m=16, T=200) with ``driver="vmap"`` and seeds
      (0, 1, 2), each seed's rows against ``driver="scan"``
      (``matrix_path``);
-  8. times each kernel at the main path's shapes beside its plain version,
+  8. trains DynaBRO over SmolLM-360M at its published width, 8 of its 32
+     layers (``task_for_config``, ``run_dynabro_scan(microbatch=True)``:
+     m=17, 8 Byzantine, sign_flip under Periodic(4), CWTM at trim 8, T=16,
+     seq_len 128), with the kernel path's graph replays under the sync
+     check, one ``cw_reduce`` launch an aggregation, a bitwise rerun, a
+     falling held-out loss and the plain backend's logs and params; prints
+     its rounds/s, capture seconds a level and peak memory (``zoo_path``);
+  9. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
      tree (``cw_reduce`` beside one launch per leaf, and its lane form over
      8 lanes beside one tree call a lane; K5 with its trim on the card), and
      ``cw_reduce`` also at 64 x 8192 and at 17 x 2^20 in float32 and
-     bfloat16;
-  9. prints the ``{"kernels": [...]}`` summary, then
+     bfloat16, and over the zoo's 11-leaf tree beside ``torch.median`` and
+     its 2.70 ms bytes bound;
+ 10. prints the ``{"kernels": [...]}`` summary, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
@@ -94,6 +105,7 @@ and the exit code is non-zero; so is it without a CUDA card.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -118,10 +130,12 @@ from repro_torch import (  # noqa: E402
     run_matrix, run_momentum, run_momentum_scan, save_checkpoint,
     scenario_grid, sgd,
 )
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.models import init_params, task_for_config  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, and float32 rate outside the tensor
 # cores (the sort network's min/max and the sums are plain f32 instructions)
@@ -449,6 +463,62 @@ def check_device_trim(dev):
         replays += 1
     emit({"phase": "device_trim", "sync_free": True, "graph_replays": replays,
           "trims": [TRIM, 0, 3, 100, -2, TRIM], "bitwise_equal_value_trim": True})
+
+
+# ------------------------------------------------- the model zoo's widths
+
+ZOO_ARCH, ZOO_LAYERS, ZOO_SEQ, ZOO_T = "smollm-360m", 8, 128, 16
+
+
+def zoo_config(layers=ZOO_LAYERS):
+    """SmolLM-360M at its published width (d_model 960, 15 heads of 64, 5 KV
+    heads, d_ff 2560, vocab 49152, tied embeddings), ``layers`` of its 32
+    layers."""
+    return dataclasses.replace(get_config(ZOO_ARCH), n_layers=layers)
+
+
+def zoo_stack(dev, seed):
+    """The zoo's worker stack: one (17, d_l) float32 leaf per leaf of the
+    8-layer model's gradient tree (11 leaves, 125,845,440 columns, the
+    embedding's 47,185,920 the widest), drawn on the card."""
+    shapes = [(k, v.numel()) for k, v in sorted(
+        init_params(zoo_config(), 0, device="cpu").items())]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(k, torch.randn(M, d, generator=gen, device=dev) * 1e-2)
+            for k, d in shapes]
+
+
+def check_zoo_tree_kernels(dev):
+    """``tree_cw_reduce`` over the zoo's 11-leaf stack at model widths (17 x
+    125.8M float32, 802M values in the embedding's leaf, 1.97M blocks):
+    against the plain version leaf by leaf (within TOL) and bit for bit
+    against one launch per leaf, the trimmed mean with the trim a value and
+    an int32 on the card, and the median; one launch a tree call."""
+    leaves = zoo_stack(dev, 7)
+    xs = [x for _, x in leaves]
+    t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
+    worst, n = 0.0, 0
+    for mode, trim in (("tm", TRIM), ("tm", t_dev), ("med", 0)):
+        tag = f"zoo tree {mode} trim={int(trim)}"
+        before = LAUNCHES["cw_reduce"]
+        outs = fused.tree_cw_reduce(xs, mode, trim)
+        assert LAUNCHES["cw_reduce"] == before + 1, tag
+        for (name, x), out in zip(leaves, outs):
+            assert torch.equal(out, fused.cw_reduce(x, mode, trim)), \
+                f"tree vs leaf {tag} {name}"
+            worst = max(worst, check(out, kref.cw_reduce_ref(x, mode, trim),
+                                     f"{tag} {name}"))
+            n += 1
+        del outs
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_check", "kernel": "tree_cw_reduce (zoo widths)",
+          "leaves": {name: x.shape[1] for name, x in leaves}, "m": M,
+          "columns": sum(x.shape[1] for x in xs), "comparisons": n,
+          "max_abs_err": worst, "bitwise_equal_per_leaf_launches": True,
+          "tolerance": TOL})
+    del leaves, xs
+    torch.cuda.empty_cache()
+    return worst
 
 
 LANE_C = (1, 3, 8, 17)
@@ -1272,7 +1342,145 @@ def matrix_path(dev):
           "vmap_vs_scan": per_seed})
 
 
-# ------------------------------------------------------------- 8. timing
+# ------------------------------------------------------------- 8. model zoo
+
+ZOO_TIMED_RUNS = 3  # the kernel path again, graphs kept, for rounds/s
+ZOO_PLAIN_TOL = 1e-5  # of each leaf's largest |value|
+
+
+def zoo_dyn_cfg(backend="auto", attack="sign_flip", aggregator="cwtm"):
+    return DynaBROConfig(
+        mlmc=MLMCConfig(T=ZOO_T, m=M, V=5.0, option=1, kappa=1.0, j_cap=3),
+        aggregator=aggregator, delta=DELTA, attack=attack, agg_backend=backend)
+
+
+def zoo_path(dev):
+    """DynaBRO over SmolLM-360M at its published width, 8 of its 32 layers
+    (``zoo_config``), seq_len 128, one sequence a unit, m=17 with 8
+    Byzantine under sign_flip and Periodic(K=4), CWTM at trim 8,
+    ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05), through
+    ``task_for_config`` and ``run_dynabro_scan(microbatch=True)`` on the
+    kernel backend. Checks, each a hard failure: every round a graph replay
+    under the sync check; exactly one ``cw_reduce`` launch an aggregation
+    and no other kernel; a second run bitwise equal (params, logs,
+    correction norms) with no capture; finite params and held-out loss; the
+    same path with no attack and the Mean rule (``cw_reduce``'s mean mode)
+    ending below the held-out loss at round 0; the plain backend's run with
+    equal logs and params within 1e-5 of each leaf's largest |value|. With
+    CWTM at trim 8 (the coordinate-wise median of 17 single-sequence
+    gradients) the held-out loss rises in these 16 rounds, under sign_flip
+    and without an attack alike (PERF.md), so the fall is held on the
+    Mean rule's unattacked run and CWTM's loss is reported. Prints rounds/s of
+    the kernel path (graphs kept, in runs after the first), each level's
+    warm-up and capture seconds, and the peak memory. Returns the kernel
+    run's launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = zoo_config()
+    task = task_for_config(cfg, seq_len=ZOO_SEQ, unit_batch=1, seed=0,
+                           device=dev)
+    sampler = task.make_sampler(M)
+    dcfg = zoo_dyn_cfg()
+    j_max = dcfg.mlmc.j_max
+    loss0 = task.objective(task.params0)
+
+    def run(scan_fn, c):
+        scan_fn = scan_fn or make_dynabro_scan_fn(task.grad_fn, c, sgd(0.05),
+                                                  microbatch=True)
+        sw = get_switcher("periodic", M, n_byz=N_BYZ, K=4)
+        return timed(lambda: run_dynabro_scan(
+            task.grad_fn, task.params0, sgd(0.05), c, sw, sampler, ZOO_T,
+            seed=0, scan_fn=scan_fn, microbatch=True))
+
+    scan_fn = make_dynabro_scan_fn(task.grad_fn, dcfg, sgd(0.05),
+                                   microbatch=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with watch_replays() as modes:
+        (p1, l1, _), first_s = run(scan_fn, dcfg)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
+    dn1 = scan_fn.corr_norms.copy()
+    captures = scan_fn.captures
+    reset_launches()
+    with watch_replays() as modes2:
+        (p2, l2, _), second_s = run(scan_fn, dcfg)
+    launches2 = {k: v for k, v in LAUNCHES.items() if v}
+    bitwise = (all(torch.equal(p1[k], p2[k]) for k in p1)
+               and np.array_equal(dn1, scan_fn.corr_norms))
+    times = [second_s] + [run(scan_fn, dcfg)[1]
+                          for _ in range(ZOO_TIMED_RUNS - 1)]
+    capture_s = {str(j): c for j, c in sorted(scan_fn.capture_seconds.items())}
+    recaptured = scan_fn.captures != captures
+    loss1 = task.objective(p1)
+    finite = all(bool(torch.isfinite(v).all()) for v in p1.values())
+    del scan_fn, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    (p_mean, l_mean, _), mean_s = run(
+        None, zoo_dyn_cfg(attack="none", aggregator="mean"))
+    mean_launches = {k: v for k, v in LAUNCHES.items() if v}
+    loss_mean = task.objective(p_mean)
+    del p_mean
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    (p3, l3, _), ref_s = run(None, zoo_dyn_cfg("ref"))
+    ref_launches = {k: v for k, v in LAUNCHES.items() if v}
+    rel = {k: float((p1[k] - p3[k]).abs().max()
+                    / p3[k].abs().max().clamp_min(1e-30)) for k in p1}
+    del p3
+    levels = [l.level for l in l1]
+    expected = sum(3 if 1 <= j <= j_max else 1 for j in levels)
+    row = {"phase": "zoo_path", "arch": ZOO_ARCH, "layers": cfg.n_layers,
+           "of_layers": get_config(ZOO_ARCH).n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "seq_len": ZOO_SEQ, "unit_batch": 1,
+           "T": ZOO_T, "m": M, "n_byz": N_BYZ, "trim": TRIM, "K": 4,
+           "j_max": j_max, "leaves": len(p1),
+           "params": sum(v.numel() for v in p1.values()),
+           "levels": {j: levels.count(j) for j in sorted(set(levels))},
+           "failsafe_ok": sum(l.failsafe_ok for l in l1),
+           "replays": len(modes), "replays_under_sync_error":
+               modes.count(SYNC_DEBUG_ERROR) + modes2.count(SYNC_DEBUG_ERROR),
+           "launches": launches, "second_run_launches": launches2,
+           "expected_cw_reduce": expected, "ref_launches": ref_launches,
+           "rerun_bitwise": bitwise, "recaptured": recaptured,
+           "corr_norms": dn1.tolist(),
+           "loss_round0": loss0, "loss_after_T": loss1,
+           "loss_after_T_mean_no_attack": loss_mean, "mean_run_s": mean_s,
+           "mean_launches": mean_launches,
+           "max_rel_param_diff_vs_plain": max(rel.values()),
+           "plain_limit": ZOO_PLAIN_TOL, "plain_layers": cfg.n_layers,
+           "capture_s": capture_s, "first_run_s": first_s,
+           "run_s": times, "rounds_per_s": [ZOO_T / t for t in times],
+           "plain_run_s": ref_s,
+           "peak_allocated_gb": peak_gb, "peak_reserved_gb": reserved_gb,
+           "device_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
+    emit(row)
+    assert len(modes) == len(modes2) == ZOO_T, (len(modes), len(modes2))
+    assert row["replays_under_sync_error"] == 2 * ZOO_T, row
+    assert launches == launches2 == {"cw_reduce": expected}, row
+    assert not ref_launches, ref_launches
+    assert bitwise and not recaptured, "zoo: the rerun differs or recaptured"
+    assert [vars(l) for l in l1] == [vars(l) for l in l2], "zoo: rerun logs"
+    assert finite and np.isfinite(loss1), (finite, loss1)
+    assert mean_launches == launches, (mean_launches, launches)
+    assert [l.level for l in l_mean] == levels, "zoo, mean: levels"
+    assert np.isfinite(loss_mean) and loss_mean < loss0, \
+        f"zoo, mean, no attack: held-out loss {loss_mean} not below {loss0}"
+    assert [vars(l) for l in l3] == [vars(l) for l in l1], "zoo: plain logs"
+    assert max(rel.values()) <= ZOO_PLAIN_TOL, rel
+    del task, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------- 9. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -1409,6 +1617,42 @@ def timing(dev):
             lambda: [kref.cw_reduce_lanes_ref(x, "tm", t_l) for x in xl],
             None, lanes * nbytes, lanes * ops)  # no one call: a trim a lane
     return rows
+
+
+def zoo_tree_timing(dev):
+    """``cw_reduce`` over the zoo's 11-leaf stack (17 x 125.8M float32,
+    trim 8, one launch) beside its plain version (``cwtm_ref`` per leaf),
+    ``torch.median(x, 0)`` per leaf (the same function at trim 8 of 17) and
+    its bytes bound: device µs by graph replay, the median of five replays
+    of 10 calls (2 for the plain and library calls, 0.1-1 s each)."""
+    leaves = zoo_stack(dev, 8)
+    xs = [x for _, x in leaves]
+    widths = [x.shape[1] for x in xs]
+    b_us, b_by = bound_from(sum(M * d * 4 + 4 * d for d in widths),
+                            sum(d * (sort_ops(M) + M) for d in widths))
+
+    def kern():
+        return fused.tree_cw_reduce(xs, "tm", TRIM)
+
+    def plain():
+        return [kref.cwtm_ref(x, TRIM) for x in xs]
+
+    def library():
+        return [torch.median(x, 0).values for x in xs]
+
+    row = {"phase": "timing", "kernel": "cw_reduce", "case": "tm zoo tree",
+           "m": M, "d": sum(widths), "leaves": len(xs), "dtype": "float32",
+           "trim": TRIM, "max_abs_err": max_abs_err(flat(kern()), flat(plain())),
+           "kernel_us": time_graph_us(kern, iters=10),
+           "plain_us": time_graph_us(plain, iters=2),
+           "library_us": time_graph_us(library, iters=2),
+           "bound_us": b_us, "bound_by": b_by}
+    row["bound_share"] = b_us / row["kernel_us"]
+    emit(row)
+    del leaves, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def flat(out):
@@ -1606,6 +1850,8 @@ def main():
           "bitwise_equal_per_leaf_launches": True,
           "bitwise_equal_every_plan": True, "tolerance": TOL})
 
+    zoo_worst = check_zoo_tree_kernels(dev)
+
     device_kernels_per_call(dev)
     check_device_trim(dev)
     lane_worst, _ = check_lane_kernels(dev)
@@ -1623,11 +1869,13 @@ def main():
     for grid in ("grid1", "grid2"):
         by_path[f"sweep {grid}"] = sweep_path(task, grid)
     matrix_path(dev)
+    by_path["zoo"] = zoo_path(dev)
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"
     rows = timing(dev)
     geo_rows = geometry_timing(dev)
+    zoo_row = zoo_tree_timing(dev)
 
     def launches_of(kernel):
         return {path: c[kernel] for path, c in by_path.items() if c.get(kernel)}
@@ -1637,14 +1885,20 @@ def main():
     entries = [kernel_entry(
         "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
         "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
-        max([worst, cw_tree_worst, lane_worst]
+        max([worst, cw_tree_worst, lane_worst, zoo_worst,
+             zoo_row["max_abs_err"]]
             + [r["max_abs_err"] for r in rows.values()]),
         tree_row, tree_row, "torch.median(x, 0) per leaf",
         shape=[[m, d] for m, d in LEAF_SHAPES], case="tm tree", trim=TRIM,
         per_leaf_ms=rows[("tm per leaf", M, d_all)]["kernel_us"] / 1e3,
         masked_ms=rows[("tm_masked tree", M, d_all)]["kernel_us"] / 1e3,
         lanes8_ms=rows[("tm lanes C=8", M, d_all)]["kernel_us"] / 1e3,
-        tree_per_lane8_ms=rows[("tm tree per lane C=8", M, d_all)]["kernel_us"] / 1e3)]
+        tree_per_lane8_ms=rows[("tm tree per lane C=8", M, d_all)]["kernel_us"] / 1e3,
+        zoo_tree_ms=zoo_row["kernel_us"] / 1e3,
+        zoo_tree_bound_ms=zoo_row["bound_us"] / 1e3,
+        zoo_tree_plain_ms=zoo_row["plain_us"] / 1e3,
+        zoo_tree_library_ms=zoo_row["library_us"] / 1e3,
+        zoo_tree_columns=zoo_row["d"])]
     for name, case, replaces, path, library in [
             ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
              "nnm+cwtm", "torch.cdist(x, x).square_()"),

@@ -15,8 +15,11 @@ the CUDA kernel ``kernels/csrc/cw_reduce.cu``, and the geometry rules
 every optimizer, on the Gaussian-mixture MLP task and App. E's quadratic;
 the ``repro.api`` facade (``Session`` and ``build_session``, the validated
 specs, the lane-batched sweep ``run_dynabro_scan_sweep`` with each rule's
-theta form, the scenario grids) and carry checkpoints. Its names are
-re-exported here.
+theta form, the scenario grids) and carry checkpoints; the model zoo's dense
+family (``configs``, ``models``: SmolLM-360M, Qwen3-0.6B, Qwen2.5-32B,
+CodeQwen1.5-7B as DynaBRO tasks, ``make_zoo_task`` / ``task_for_config``,
+on ``data.SyntheticLMData``) through the compiled driver's ``microbatch=True``
+streaming. Its names are re-exported here.
 """
 from repro_torch.api import (
     AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, Optimizer, RoundInputs,
@@ -30,13 +33,17 @@ from repro_torch.api import (
 from repro_torch.checkpoint import (
     checkpoint_step, latest_checkpoint, load_checkpoint, save_checkpoint,
 )
-from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.convert import (
+    params_from_numpy, params_to_numpy, zoo_params_from_numpy,
+    zoo_params_to_numpy,
+)
 from repro_torch.core import (
     get_aggregator, get_attack, make_dynabro_step, make_momentum_step,
 )
-from repro_torch.data import make_task
+from repro_torch.data import SyntheticLMData, make_task
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES
+from repro_torch.models import make_zoo_task, task_for_config
 
 __all__ = [
     # repro.api's names
@@ -58,4 +65,7 @@ __all__ = [
     "params_from_numpy", "params_to_numpy", "get_aggregator", "get_attack",
     "make_dynabro_step", "make_momentum_step", "make_task", "resolve_device",
     "LAUNCHES",
+    # the model zoo
+    "SyntheticLMData", "make_zoo_task", "task_for_config",
+    "zoo_params_from_numpy", "zoo_params_to_numpy",
 ]

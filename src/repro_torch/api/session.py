@@ -122,8 +122,10 @@ class Session:
     every field.
 
     ``mode`` is ``"dynabro"`` (Algorithm 2; needs ``opt``) or ``"momentum"``
-    (the worker-momentum baseline; needs ``lr``/``beta``). ``mesh``,
-    ``param_specs``, ``microbatch`` and ``guard_recompiles=True`` are not
+    (the worker-momentum baseline; needs ``lr``/``beta``). ``microbatch``
+    streams each round's units (``make_dynabro_scan_fn``; the model zoo's
+    path), and a ``scan_fn`` given must be built with the same.
+    ``mesh``, ``param_specs`` and ``guard_recompiles=True`` are not
     ported and raise ``NotImplementedError`` naming their ROADMAP.md item;
     ``nan_tripwire`` (None: the ``REPRO_NAN_TRIPWIRE`` env var) reads the
     params back after each step and run and raises on a non-finite value.
@@ -151,7 +153,6 @@ class Session:
         if guard_recompiles is None:
             guard_recompiles = _env_on(GUARD_ENV)
         rt._refuse_unported(mesh=mesh, param_specs=param_specs,
-                            microbatch=microbatch,
                             guard_recompiles=guard_recompiles)
         self.cfg = cfg
         self.grad_fn = grad_fn
@@ -165,6 +166,7 @@ class Session:
         self.lr, self.beta = lr, beta
         self.vectorize_batches = vectorize_batches
         self.worker_axis = worker_axis
+        self.microbatch = microbatch
         self.m = m if m is not None else (switcher.m if switcher else None)
         self.nan_tripwire = nan_tripwire
         if scan_fn is not None and mode == "dynabro":
@@ -175,6 +177,7 @@ class Session:
                         f"{getattr(scan_fn, lane_kind)!r}; that variant is "
                         f"for run_dynabro_scan_sweep(...), not "
                         f"run_dynabro_scan")
+            rt._check_scan_fn_microbatch(scan_fn, microbatch)
         self._scan_fn = scan_fn
         self._schedules: Dict[int, RoundSchedule] = {}
         self._lane_fns: Dict[Tuple, Any] = {}
@@ -191,7 +194,7 @@ class Session:
             if self.mode == "dynabro":
                 self._scan_fn = rt.make_dynabro_scan_fn(
                     self.grad_fn, self.cfg, self.opt,
-                    worker_axis=self.worker_axis)
+                    worker_axis=self.worker_axis, microbatch=self.microbatch)
             else:
                 self._scan_fn = rt.make_momentum_scan_fn(
                     self.grad_fn, self.cfg, self.lr, self.beta,
@@ -297,7 +300,7 @@ class Session:
                 out = rt.run_dynabro_scan(
                     self.grad_fn, self.params0, self.opt, self.cfg,
                     self.switcher, self.sample_batches, T, chunk=chunk,
-                    scan_fn=self.scan_fn,
+                    scan_fn=self.scan_fn, microbatch=self.microbatch,
                     vectorize_batches=self.vectorize_batches, **common)
         elif driver == "legacy":
             out = rt.run_momentum(self.grad_fn, self.params0, self.cfg,

@@ -24,7 +24,10 @@ round. The compiled drivers (``run_dynabro_scan``, ``run_momentum_scan``)
 draw the same schedules before the rounds of a segment run and replay the
 rounds without a host sync; on a card each round replays one captured CUDA
 graph of its level (``ScanFn``). Both draw the ``random`` attack's noise
-from one generator in the same order (``core/attacks.py``).
+from one generator in the same order (``core/attacks.py``). The compiled
+DynaBRO driver's ``microbatch`` form streams a round's units through three
+accumulators instead of the (m, 2^J, ...) gradient stack (the model zoo's
+path, ``models/zoo.py``); its ``random`` draws come unit by unit.
 
 The lane-batched sweep (``run_dynabro_scan_sweep``) runs C cells that
 share the level plan and the batches as lanes of one compiled round: each
@@ -149,6 +152,53 @@ def _combine_levels(cfg: DynaBROConfig, grads, j: int):
     if cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max:
         gh = {k: v[:, : n // 2].mean(1) for k, v in grads.items()}
     return _combine_from_levels(cfg, g0_stack, gh, gbar_all, n, j)
+
+
+def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
+                   masks, n: int, j: int, generator=None):
+    """The round's three level means without the (m, n, ...) stack: unit by
+    unit, the (m, ...) worker gradients of unit k (batches: tree leading (m,
+    n)), attacked with unit k's mask (masks: (n, m)) and, for ``random``,
+    drawn from ``generator`` in unit order, are summed into float32
+    accumulators: the level-0 snapshot (unit 0), the first-half sum and the
+    full sum, as the JAX package's ``_stream_levels`` does. The sums are
+    divided in place (the same bits as a division into new buffers), cast
+    to the parameters' dtypes and combined by ``_combine_from_levels``. The
+    accumulators are contiguous; the first half's is kept only when the
+    MLMC branch is live and the full sum only when it or plain SGD reads
+    it. The summation order differs from the stacked means', so the
+    streamed round is not bitwise the stacked one."""
+    mlmc_live = cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max
+    need_all = mlmc_live or not cfg.use_mlmc
+    worker_grads = vmap(grad_fn, in_dims=(None, 0))
+    a0 = ah = aa = None
+    for k in range(n):
+        g = worker_grads(params, tree_map(lambda l: l.select(1, k), batches))
+        g = atk(g, masks[k], generator=generator)
+        g = {key: v.to(F32).contiguous() for key, v in g.items()}
+        if k == 0:
+            a0 = g
+
+            def zeros():
+                return {key: torch.zeros(v.shape, dtype=F32, device=v.device)
+                        for key, v in g.items()}
+            ah = zeros() if mlmc_live else None
+            aa = zeros() if need_all else None
+        if ah is not None and k < n // 2:
+            for key, v in ah.items():
+                v.add_(g[key])
+        if aa is not None:
+            for key, v in aa.items():
+                v.add_(g[key])
+        del g
+
+    def mean(acc, count):
+        return None if acc is None else {
+            key: v.div_(count).to(params[key].dtype) for key, v in acc.items()}
+
+    g0_stack = {key: v.to(params[key].dtype) for key, v in a0.items()}
+    return _combine_from_levels(cfg, g0_stack, mean(ah, n // 2), mean(aa, n),
+                                n, j)
 
 
 def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer):
@@ -369,8 +419,7 @@ _UNPORTED = {
     "mesh": "Multi-device",
     "sweep_mesh": "Multi-device",
     "lane_mesh": "Multi-device",
-    "param_specs": "Mode B and the model zoo",
-    "microbatch": "Mode B and the model zoo",
+    "param_specs": "Multi-device",  # the JAX package's GSPMD sharding
     "guard_recompiles": "lint/",
     "sweep_halving": "Successive-halving sweeps",
 }
@@ -382,6 +431,17 @@ def _refuse_unported(**kw) -> None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP.md "
                 f"queue 1, {_UNPORTED[name]!r})")
+
+
+def _check_scan_fn_microbatch(scan_fn, microbatch: bool) -> None:
+    """Reject a prebuilt scan_fn (None: none given) built for the other unit
+    path: the streamed and the stacked rounds are not bitwise equal."""
+    have = getattr(scan_fn, "microbatch", microbatch)
+    if have != microbatch:
+        raise ValueError(
+            f"scan_fn was built with microbatch={have}, but this run passes "
+            f"microbatch={microbatch}; rebuild the scan_fn to match (the two "
+            "paths are not bitwise-equivalent)")
 
 
 @functools.cache
@@ -473,40 +533,54 @@ class _LevelGraphs:
         return _call_round(self.round_fn, self.carry, batch, masks, key,
                            self.generators, self.lane)
 
-    def capture(self, key) -> None:
-        """Warm the round up on the capturing stream (the kernels' counters,
-        the libraries' workspaces), then capture it. A capture that fails
+    def capture(self, keys) -> None:
+        """Warm the rounds of ``keys`` up on the capturing stream (the
+        kernels' counters, the libraries' workspaces), then capture each. The
+        warm-ups all come first: a warm-up allocates from the caching
+        allocator's default pool, which each capture empties as it begins,
+        and a capture from the graphs' pool, which keeps its memory while
+        the graphs live; so a warm-up after a capture would hold both at
+        once (a model's round holds tens of GB). A capture that fails
         raises: there is no eager fallback."""
-        t0 = time.perf_counter()
         before = dict(LAUNCHES)
-        # the warm-up reads the schedules at the round indices: earlier
-        # replays may have left them past the buffers' end
-        self.sidx.zero_()
-        self.gidx.zero_()
         current = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            self._round(key)  # results dropped; the carry is not written
+        for key in keys:
+            t0 = time.perf_counter()
+            # the warm-up reads the schedules at the round indices: earlier
+            # replays may have left them past the buffers' end
+            self.sidx.zero_()
+            self.gidx.zero_()
+            with torch.cuda.stream(self.stream):
+                self._round(key)  # results dropped; the carry is not written
+            self.stream.synchronize()
+            self.capture_seconds[key] = time.perf_counter() - t0
         current.wait_stream(self.stream)
         LAUNCHES.update(before)
-        graph = torch.cuda.CUDAGraph()
-        for generator in self.generators:
-            graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            carry, ok, corr_norm = self._round(key)
-            tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
-            if self.flags:
-                row = (1,) + tuple(self.ok.shape[1:])
-                self.ok.index_copy_(0, self.gidx, ok.reshape(row))
-                self.corr_norm.index_copy_(0, self.gidx,
-                                           corr_norm.reshape(row).to(F32))
-            self.gidx.add_(1)
-            self.sidx.add_(1)
-        launches = {k: v - before[k] for k, v in LAUNCHES.items()
-                    if v != before[k]}
-        LAUNCHES.update(before)
-        self.graphs[key] = (graph, launches)
-        self.capture_seconds[key] = time.perf_counter() - t0
+        for key in keys:
+            t0 = time.perf_counter()
+            self.sidx.zero_()
+            self.gidx.zero_()
+            graph = torch.cuda.CUDAGraph()
+            for generator in self.generators:
+                graph.register_generator_state(generator)
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                carry, ok, corr_norm = self._round(key)
+                tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
+                if self.flags:
+                    row = (1,) + tuple(self.ok.shape[1:])
+                    self.ok.index_copy_(0, self.gidx, ok.reshape(row))
+                    self.corr_norm.index_copy_(0, self.gidx,
+                                               corr_norm.reshape(row).to(F32))
+                self.gidx.add_(1)
+                self.sidx.add_(1)
+            # the round's outputs go back to the pool for the next capture
+            del carry, ok, corr_norm
+            launches = {k: v - before[k] for k, v in LAUNCHES.items()
+                        if v != before[k]}
+            LAUNCHES.update(before)
+            self.graphs[key] = (graph, launches)
+            self.capture_seconds[key] += time.perf_counter() - t0
 
     def replay(self, keys) -> None:
         """Replay the graphs of ``keys`` in order under
@@ -542,18 +616,23 @@ class ScanFn:
     graph (``_LevelGraphs``), kept for the next run while the shapes (and
     the lane groups) fit; ``capture_seconds`` holds each key's warm-up and
     capture time and ``captures`` counts the captures made. ``run_round``
-    runs one round through the same graphs (``Session.step``).
+    runs one round through the same graphs (``Session.step``). After a run,
+    ``corr_norms`` holds its rounds' correction norms ((T,) or (T, C), read
+    once after the last segment; None in momentum mode). ``microbatch``
+    tells which unit path a DynaBRO round function runs.
     """
 
     lane_attacks: Optional[tuple] = None
     lane_aggregators: Optional[tuple] = None
     lanes = False
+    microbatch = False
 
     def __init__(self, round_fn, flags: bool):
         self.round_fn, self.flags = round_fn, flags
         self._generators: Dict[torch.device, list] = {}
         self._graphs: Optional[_LevelGraphs] = None
         self.captures = 0
+        self.corr_norms: Optional[np.ndarray] = None
 
     @property
     def capture_seconds(self) -> Dict[Any, float]:
@@ -597,20 +676,23 @@ class ScanFn:
                                     seeds, gens, eval_fn, eval_every, lane_dev)
         for gen, s in zip(gens, seeds):
             gen.manual_seed(int(s))
-        oks, evals, a = [], [], 0
+        oks, dns, evals, a = [], [], [], 0
         for b in bounds:
             seg = batches(a, b)
             flags = []
             for i, t in enumerate(range(a, b)):
-                carry, ok, _ = _call_round(
+                carry, ok, dn = _call_round(
                     self.round_fn, carry, tree_map(lambda l: l[i], seg),
                     masks_dev[t], int(keys[t]), gens, lane_dev)
                 flags.append(ok)
+                dns.append(dn)
             if self.flags:
                 oks.append(torch.stack(flags).cpu().numpy())
             if eval_fn and eval_every and b % eval_every == 0:
                 evals.append((b, eval_fn(carry[0], b - 1)))
             a = b
+        self.corr_norms = (torch.stack(dns).to(F32).cpu().numpy()
+                           if self.flags else None)
         return carry[0], (np.concatenate(oks) if self.flags else None), evals
 
     def _run_graphs(self, carry, keys, masks_dev, batches, bounds, seeds, gens,
@@ -620,9 +702,9 @@ class ScanFn:
         seg = batches(0, bounds[0])
         with torch.cuda.device(masks_dev.device):
             g = self._level_graphs(carry, seg, masks_dev, gens, L, T, lane)
-            for key in sorted({int(k) for k in keys} - set(g.graphs)):
-                g.capture(key)
-                self.captures += 1
+            new = sorted({int(k) for k in keys} - set(g.graphs))
+            g.capture(new)
+            self.captures += len(new)
             # the captures above warmed up on the generators: seed them after
             for gen, s in zip(gens, seeds):
                 gen.manual_seed(int(s))
@@ -646,6 +728,8 @@ class ScanFn:
                                              b - 1)))
                 a = b
             params = tree_map(torch.clone, g.carry[0])
+            self.corr_norms = (g.corr_norm[:T].cpu().numpy() if self.flags
+                               else None)
         return params, (np.concatenate(oks) if self.flags else None), evals
 
     def run_round(self, carry, key: int, batch, masks,
@@ -673,7 +757,7 @@ class ScanFn:
             g = self._level_graphs(carry, batch_rows, masks[None], (gen,), 1,
                                    1, None)
             if key not in g.graphs:
-                g.capture(key)
+                g.capture([key])
                 self.captures += 1
                 if state is not None:
                     gen.set_state(state)  # the capture warmed up on it
@@ -704,14 +788,29 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     ``lane_attacks`` / ``lane_aggregators`` (sequences of names) build the
     sweep's lane form instead (``run_dynabro_scan_sweep``): lanes index
     these names through a ``LanePlan``, and an absent axis runs ``cfg``'s
-    attack or rule on every lane. ``mesh``, ``param_specs``, ``microbatch``
-    and ``sweep_mesh`` are not ported and raise ``NotImplementedError``;
-    ``worker_axis`` and ``lane_axis`` are taken for the JAX package's
-    signature."""
-    _refuse_unported(mesh=mesh, param_specs=param_specs,
-                     microbatch=microbatch, sweep_mesh=sweep_mesh)
+    attack or rule on every lane.
+
+    ``microbatch`` streams each round's units through three float32
+    accumulators instead of materializing the (m, 2^j, ...) per-worker
+    gradient stack (``_stream_levels``): the model zoo's path, where one
+    stack of a real model's gradients is GBs. The unit loop unrolls inside
+    each level's graph. Its parity contract is with the JAX package's
+    microbatched driver; it is not bitwise the stacked path. Not for the
+    lane form (sweeps materialize by design).
+
+    ``mesh``, ``param_specs`` and ``sweep_mesh`` are not ported and raise
+    ``NotImplementedError``; ``worker_axis`` and ``lane_axis`` are taken for
+    the JAX package's signature."""
+    _refuse_unported(mesh=mesh, param_specs=param_specs, sweep_mesh=sweep_mesh)
+    if microbatch and (lane_attacks is not None
+                       or lane_aggregators is not None):
+        raise ValueError(
+            "microbatch streaming is not supported on the lane-batched sweep "
+            "variant (DESIGN.md §9); drop lane_attacks/lane_aggregators")
     if lane_attacks is not None or lane_aggregators is not None:
         return _lane_scan_fn(grad_fn, cfg, opt, lane_attacks, lane_aggregators)
+    if microbatch:
+        return _streamed_scan_fn(grad_fn, cfg, opt)
     j_max = cfg.mlmc.j_max
     n_max = 2 ** j_max if cfg.use_mlmc else 1
     step = make_dynabro_step(grad_fn, cfg, opt)
@@ -727,6 +826,28 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     # the same cfg's lane form, for sweeps that carry this scan_fn
     scan_fn.lane_form = functools.cache(
         functools.partial(_lane_scan_fn, grad_fn, cfg, opt, None, None))
+    return scan_fn
+
+
+def _streamed_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig,
+                      opt: Optimizer) -> ScanFn:
+    """``make_dynabro_scan_fn(microbatch=True)``'s round loop."""
+    j_max = cfg.mlmc.j_max
+    n_max = 2 ** j_max if cfg.use_mlmc else 1
+    atk = attacks_lib.get_attack(cfg.attack, **(cfg.attack_kwargs or {}))
+
+    def round_fn(carry, batch, masks, j, generator):
+        n = 2 ** j if (cfg.use_mlmc and 1 <= j <= j_max) else 1
+        params, opt_state = carry
+        g, info = _stream_levels(grad_fn, cfg, atk, params,
+                                 level_prefix(batch, n, n_max, axis=1),
+                                 masks[:n], n, j, generator)
+        updates, opt_state = opt.update(g, opt_state, params)
+        params = apply_updates(params, updates)
+        return (params, opt_state), info["failsafe_ok"], info["corr_norm"]
+
+    scan_fn = ScanFn(round_fn, flags=True)
+    scan_fn.microbatch = True
     return scan_fn
 
 
@@ -759,13 +880,17 @@ def run_dynabro_scan(
     call a round, before its rounds run, and its fail-safe flags are read
     once, after them. On a card the rounds replay one CUDA graph per level
     with no host sync between evaluation points. ``scan_fn`` takes a
-    prebuilt ``make_dynabro_scan_fn`` result to reuse its graphs.
-    ``vectorize_batches`` changes nothing (``_batch_schedule``); ``mesh``,
-    ``param_specs`` and ``microbatch`` raise ``NotImplementedError``."""
-    _refuse_unported(mesh=mesh, param_specs=param_specs, microbatch=microbatch)
+    prebuilt ``make_dynabro_scan_fn`` result to reuse its graphs (built
+    with this run's ``microbatch``). ``microbatch`` streams each round's
+    units (``make_dynabro_scan_fn``); the model zoo runs this way.
+    ``vectorize_batches`` changes nothing (``_batch_schedule``); ``mesh``
+    and ``param_specs`` raise ``NotImplementedError``."""
+    _refuse_unported(mesh=mesh, param_specs=param_specs)
+    _check_scan_fn_microbatch(scan_fn, microbatch)
     if T <= 0:
         return params, [], []
-    scan_fn = scan_fn or make_dynabro_scan_fn(grad_fn, cfg, opt)
+    scan_fn = scan_fn or make_dynabro_scan_fn(grad_fn, cfg, opt,
+                                              microbatch=microbatch)
     levels, ns, n_max = _level_plan(cfg, np.random.default_rng(seed), T)
     masks = _mask_schedule(switcher, T, n_max, ns)
 

@@ -1154,3 +1154,57 @@ def test_sweep_lanes_match_lone_runs_on_card(cuda_device):
             lim = 1e-6 if spec.rule == "cwtm" else 1e-5
             for k in p1:
                 assert float((p[k] - p1[k]).abs().max()) <= lim, (c, k)
+
+
+# ------------------------------------------------- the model zoo on the card
+
+
+def test_zoo_streamed_graphs_on_card(cuda_device):
+    """The zoo's streamed driver (``run_dynabro_scan(microbatch=True)``) on
+    the card at a small width (smollm-360m reduced to 64 wide, 2 layers,
+    seq 16; m=17, 8 Byzantine, T=8): one ``cw_reduce`` launch an
+    aggregation, a rerun bitwise (params and correction norms) with no
+    capture, the plain backend's logs and params within 1e-5 of each leaf's
+    largest |value|, and the CPU run's logs and params within 1e-4 of it
+    (the card and the CPU sum the products in other orders)."""
+    from repro_torch import (DynaBROConfig, MLMCConfig, get_switcher,
+                             make_dynabro_scan_fn, run_dynabro_scan, sgd)
+    from repro_torch.models import make_zoo_task
+    T = 8
+
+    def cfg(backend="auto"):
+        return DynaBROConfig(
+            mlmc=MLMCConfig(T=T, m=FIG1["m"], V=5.0, kappa=1.0, j_cap=2),
+            aggregator="cwtm", delta=FIG1["delta"], attack="sign_flip",
+            agg_backend=backend)
+
+    def run(dev, c, scan_fn=None):
+        task, _ = make_zoo_task("smollm-360m", seq_len=16, d_model=64,
+                                device=dev)
+        sw = get_switcher("periodic", FIG1["m"], n_byz=FIG1["n_byz"], K=4)
+        return run_dynabro_scan(task.grad_fn, task.params0, sgd(0.05), c, sw,
+                                task.make_sampler(FIG1["m"]), T, seed=1,
+                                scan_fn=scan_fn, microbatch=True)
+
+    task, _ = make_zoo_task("smollm-360m", seq_len=16, d_model=64,
+                            device=cuda_device)
+    scan_fn = make_dynabro_scan_fn(task.grad_fn, cfg(), sgd(0.05),
+                                   microbatch=True)
+    (p1, l1, _), n1 = _launch_counts(lambda: run(cuda_device, cfg(), scan_fn))
+    dn1, captures = scan_fn.corr_norms.copy(), scan_fn.captures
+    (p2, l2, _), n2 = _launch_counts(lambda: run(cuda_device, cfg(), scan_fn))
+    levels = [l.level for l in l1]
+    j_max = cfg().mlmc.j_max
+    assert n1 == n2 == {"cw_reduce": sum(3 if 1 <= j <= j_max else 1
+                                         for j in levels)}
+    assert scan_fn.captures == captures == len(set(levels))
+    assert [vars(l) for l in l1] == [vars(l) for l in l2]
+    assert all(torch.equal(p1[k], p2[k]) for k in p1)
+    assert np.array_equal(scan_fn.corr_norms, dn1)
+    for other, lim in ((run(cuda_device, cfg("ref")), 1e-5),
+                       (run("cpu", cfg()), 1e-4)):
+        assert [vars(l) for l in other[1]] == [vars(l) for l in l1]
+        for k in p1:
+            want = other[0][k].to(cuda_device)
+            scale = float(want.abs().max().clamp_min(1e-30))
+            assert float((p1[k] - want).abs().max()) <= lim * scale, (k, lim)

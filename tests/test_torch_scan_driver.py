@@ -163,9 +163,10 @@ def test_unported_keywords_raise():
     params0, grad_fn, sampler, _ = _small_task()
     cfg = _small_cfg("cwtm")
     opt = t_optim.sgd(0.1)
+    # microbatch= is ported (tests/test_torch_zoo.py); param_specs= is the
+    # JAX package's GSPMD sharding, so it waits for multi-device
     for kw, item in [({"mesh": object()}, "Multi-device"),
-                     ({"param_specs": {}}, "model zoo"),
-                     ({"microbatch": True}, "model zoo")]:
+                     ({"param_specs": {}}, "Multi-device")]:
         with pytest.raises(NotImplementedError, match=item):
             t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
                                   sampler, 4, **kw)

@@ -164,9 +164,10 @@ def test_session_errors_and_unported_keywords(monkeypatch):
     with pytest.raises(ValueError, match="lr= and beta="):
         t_session.Session(cfg, grad_fn=None, params0=None, mode="momentum")
     base = dict(grad_fn=task.grad_fn, params0=task.params0, opt=t_optim.sgd(0.1))
+    # microbatch= is ported (tests/test_torch_zoo.py); param_specs= is the
+    # JAX package's GSPMD sharding, so it waits for multi-device
     for kw, item in [({"mesh": object()}, "Multi-device"),
-                     ({"param_specs": {}}, "model zoo"),
-                     ({"microbatch": True}, "model zoo"),
+                     ({"param_specs": {}}, "Multi-device"),
                      ({"guard_recompiles": True}, "lint/")]:
         with pytest.raises(NotImplementedError, match=item):
             t_session.Session(cfg, **base, **kw)
