@@ -82,14 +82,38 @@ sources there (``nvcc``, one process per source, all started together, into
      (the README's grid, m=16, T=200) with ``driver="vmap"`` and seeds
      (0, 1, 2), each seed's rows against ``driver="scan"``
      (``matrix_path``);
-  8. trains DynaBRO over SmolLM-360M at its published width, 8 of its 32
+  8. drives the aggregation service ``repro_torch.serve`` on the Figure-1
+     setting (``serve_path``): (a) 17 ``SimulatedWorkers`` threads stream
+     2,550 updates into an ``AggregationServer`` over ``build_session``,
+     the health polled over HTTP until "completed": params bitwise equal to
+     a fresh session's ``Session.run(150)``, its logs, 440 ``cw_reduce``
+     launches, every round a graph replay under the sync check, each level
+     captured once, on the serve thread, with the worker threads alive;
+     rounds/s, updates/s, staleness, ring high-water and the last round's
+     seconds, beside 150 ``Session.step`` calls in turns; (b) under the
+     random attack, checkpoints every 25 rounds, a kill after round 80 and
+     ``AggregationServer.resume`` from 75, bitwise equal to ``run``, with a
+     final checkpoint at 150; (c) three stragglers on two rounds masked
+     after a 0.25 s deadline, bitwise equal to an offline ``Session.step``
+     replay of the same zero-fill and mask OR; (d) ``repro_torch.serve.
+     smoke.main()`` on the card; then ``Session.sweep_halving`` over both
+     sweep grids, rungs at 50 and 100, keep 0.5, the held-out loss as the
+     objective (``halving_path``): every survivor bitwise equal to a
+     ``Session.sweep`` of the surviving subset, each pruned cell to the
+     sweep of the cells alive in its last segment stopped at its rung,
+     every round a replay under the sync check; the captures at each rung
+     and lanes·rounds/s beside the full sweep's, in turns;
+  9. trains DynaBRO over SmolLM-360M at its published width, 8 of its 32
      layers (``task_for_config``, ``run_dynabro_scan(microbatch=True)``:
      m=17, 8 Byzantine, sign_flip under Periodic(4), CWTM at trim 8, T=16,
      seq_len 128), with the kernel path's graph replays under the sync
      check, one ``cw_reduce`` launch an aggregation, a bitwise rerun, a
      falling held-out loss and the plain backend's logs and params; prints
      its rounds/s, capture seconds a level and peak memory (``zoo_path``);
-  9. times each kernel at the main path's shapes beside its plain version,
+     and (e) of ``serve_path``: 4 rounds of that model served from 17
+     worker threads, the session sharing the path's scan_fn (no capture),
+     bitwise equal to ``Session.run(4)``, with rounds/s and peak memory;
+ 10. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
      tree (``cw_reduce`` beside one launch per leaf, and its lane form over
@@ -97,7 +121,8 @@ sources there (``nvcc``, one process per source, all started together, into
      ``cw_reduce`` also at 64 x 8192 and at 17 x 2^20 in float32 and
      bfloat16, and over the zoo's 11-leaf tree beside ``torch.median`` and
      its 2.70 ms bytes bound;
- 10. prints the ``{"kernels": [...]}`` summary, then
+ 11. prints the ``{"kernels": [...]}`` summary (each kernel's launches by
+     path, the served and halving paths among them), then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 One JSON object per line, apart from the nvidia-smi line. Any failure raises
@@ -106,13 +131,16 @@ and the exit code is non-zero; so is it without a CUDA card.
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -122,16 +150,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from torch.utils._pytree import tree_map  # noqa: E402
+
 from repro_torch import (  # noqa: E402
-    LAUNCHES, AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, SweepSpec, Task,
-    adagrad_norm, build_session, checkpoint_step, format_table, get_attack,
-    get_switcher, load_checkpoint, make_dynabro_scan_fn, make_momentum_scan_fn,
-    make_quadratic_task, make_task, run_dynabro, run_dynabro_scan,
-    run_matrix, run_momentum, run_momentum_scan, save_checkpoint,
-    scenario_grid, sgd,
+    LAUNCHES, AggregationServer, AggSpec, AttackSpec, DynaBROConfig,
+    MLMCConfig, ServeConfig, SimulatedWorkers, SweepSpec, Task, adagrad_norm,
+    build_session, checkpoint_step, format_table, get_attack, get_switcher,
+    latest_checkpoint, load_checkpoint, make_dynabro_scan_fn,
+    make_momentum_scan_fn, make_quadratic_task, make_task, run_dynabro,
+    run_dynabro_scan, run_matrix, run_momentum, run_momentum_scan,
+    save_checkpoint, scenario_grid, sgd, worker_payloads,
 )
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
+from repro_torch.core import robust_train as rt  # noqa: E402
+from repro_torch.data import classification as clf  # noqa: E402
+from repro_torch.serve import smoke as serve_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -1342,7 +1376,352 @@ def matrix_path(dev):
           "vmap_vs_scan": per_seed})
 
 
-# ------------------------------------------------------------- 8. model zoo
+# ------------------------------------------- 8. the service and the halving
+
+SERVE_JITTER_S = 0.002
+SERVE_TIMEOUT_S = 300.0  # every join and poll of a served stream
+SERVE_TIMED_PAIRS = 2  # a served stream and 150 Session.step calls, in turns
+STRAGGLERS = ((2, 30), (9, 30), (5, 70))  # (worker, round) never submitted
+KILL_AFTER, CHECKPOINT_EVERY = 80, 25
+HALVING_RUNGS, HALVING_TIMED_PAIRS = [50, 100], 2
+
+
+@contextlib.contextmanager
+def watch_captures():
+    """Record each level-graph capture made while the block runs: its
+    thread, levels and lanes, the worker threads alive as it began, the
+    first round of the run that made it (``ScanFn.run``'s ``start``) and
+    its seconds."""
+    calls, state = [], {"start": 0}
+    capture, run = rt._LevelGraphs.capture, rt.ScanFn.run
+
+    def watched(self, keys):
+        keys = [int(k) for k in keys]
+        alive = sum(t.is_alive() for t in threading.enumerate()
+                    if t.name.startswith("serve-worker"))
+        t0 = time.perf_counter()
+        capture(self, keys)
+        if keys:
+            calls.append({"thread": threading.current_thread().name,
+                          "levels": keys, "workers_alive": alive,
+                          "lanes": None if self.lane is None else self.lane[0].lanes,
+                          "start": state["start"],
+                          "s": time.perf_counter() - t0})
+
+    def watched_run(self, *args, **kw):
+        state["start"] = kw.get("start", 0)
+        return run(self, *args, **kw)
+
+    rt._LevelGraphs.capture, rt.ScanFn.run = watched, watched_run
+    try:
+        yield calls
+    finally:
+        rt._LevelGraphs.capture, rt.ScanFn.run = capture, run
+
+
+def poll_health(server):
+    """GET /health until the stream is "completed"; fails on "error" or
+    past the timeout. Returns the last answer."""
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    while time.monotonic() < deadline:
+        with urllib.request.urlopen(server.health.url + "/health",
+                                    timeout=5) as r:
+            health = json.load(r)
+        assert health["status"] != "error", (health, server.error)
+        if health["status"] == "completed":
+            return health
+        time.sleep(0.005)
+    raise AssertionError(f"served stream stalled: {server.snapshot()}")
+
+
+def serve(sess, payloads, cfg, *, rounds=T, start_round=0, drop=(),
+          server=None):
+    """Stream ``payloads`` from 17 worker threads into an
+    ``AggregationServer`` over ``sess`` (or ``server``) until it finishes:
+    over HTTP when ``cfg`` has a health port. Fails on a worker failure or a
+    server error. Returns (server, snapshot, health answer, seconds from
+    ``start`` to ``join``)."""
+    server = server or AggregationServer(sess, rounds, cfg)
+    t0 = time.perf_counter()
+    server.start()
+    workers = SimulatedWorkers(server, payloads, start_round=start_round,
+                               drop=drop, jitter_s=SERVE_JITTER_S).start()
+    health = poll_health(server) if cfg.health_port is not None else None
+    done = server.join(timeout=SERVE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    assert workers.join(timeout=30.0), "worker threads still running"
+    snap = server.snapshot()
+    server.stop(drain=True, timeout=30.0)
+    server.close()
+    if server.error is not None:
+        raise RuntimeError(f"server error: {server.error!r}") from server.error
+    assert done and not workers.failures, (snap, workers.failures)
+    assert snap["status"] == "completed", snap
+    return server, snap, health, secs
+
+
+def serve_rates(snap, secs, updates):
+    return {"rounds_per_s": snap["rounds_completed"] / secs,
+            "updates_per_s": updates / secs, "start_to_join_s": secs,
+            "staleness_mean_s": snap["staleness_mean_s"],
+            "staleness_max_s": snap["staleness_max_s"],
+            "ring_high_water": snap["ring_high_water"],
+            "last_round_s": snap["last_round_s"]}
+
+
+def serve_path(task):
+    """The aggregation service on the Figure-1 setting (CWTM at trim 8,
+    sign_flip under Periodic(10), T=150, sgd(0.1)), each row a hard
+    failure: (a) 17 ``SimulatedWorkers`` threads (2 ms jitter) stream 2,550
+    updates, the health polled over HTTP until "completed": params bitwise
+    equal to a fresh session's ``Session.run(150)``, its logs, 440
+    ``cw_reduce`` launches, every round a graph replay under the sync
+    check, each level captured once, on the serve thread, with the worker
+    threads alive; then a served stream and 150 ``Session.step`` calls on
+    the same session, in turns; (b) under the random attack, periodic
+    checkpoints every 25 rounds, a kill after round 80 and a resume from 75
+    bitwise equal to ``run``, with a final checkpoint at 150; (c) three
+    stragglers on two rounds masked after a 0.25 s deadline, bitwise equal
+    to an offline ``Session.step`` replay of the same zero-fill and mask OR;
+    (d) ``python -m repro_torch.serve.smoke`` on the card."""
+    dev = task[0]["w1"].device
+
+    def session(cfg):
+        return build_session(cfg, mlp_task(task), opt=sgd(0.1),
+                             switcher=periodic(), seed=0)
+
+    # (a) a full stream
+    cfg = fig1_cfg("cwtm")
+    p_ref, logs_ref, _ = session(cfg).run(T)
+    sess = session(cfg)
+    payloads = worker_payloads(sess, T)
+    reset_launches()
+    with watch_replays() as modes, watch_captures() as caps:
+        server, snap, health, first_s = serve(sess, payloads, ServeConfig(
+            capacity=1024, lookahead_rounds=8, health_port=0))
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    levels = sorted({l.level for l in logs_ref})
+    assert bitwise(server.params, p_ref), "serve: stream vs Session.run"
+    assert [vars(l) for l in server.logs] == [vars(l) for l in logs_ref]
+    assert snap["updates_accepted"] == M * T == 2550, snap
+    assert health["round"] == T and health["updates_accepted"] == M * T
+    assert launches == {"cw_reduce": 440}, launches
+    assert len(modes) == T == modes.count(SYNC_DEBUG_ERROR), modes
+    assert sorted(l for c in caps for l in c["levels"]) == levels, caps
+    assert all(c["thread"] == "serve-loop" for c in caps), caps
+    assert caps[0]["workers_alive"] == M, caps
+    assert sess.scan_fn.captures == len(levels)
+    rows = [{"stream": "a", "bitwise_equal_run": True, "logs_equal": True,
+             "updates_accepted": snap["updates_accepted"],
+             "cw_reduce_launches": launches["cw_reduce"],
+             "replays": len(modes),
+             "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+             "captures": caps, "health": health,
+             **serve_rates(snap, first_s, snap["updates_accepted"])}]
+    sched = sess.schedule(T)
+    inputs = [sess.round_inputs(sched, t) for t in range(T)]
+    pairs = []
+    for _ in range(SERVE_TIMED_PAIRS):
+        _, snap2, _, serve_s = serve(sess, payloads, ServeConfig(
+            capacity=1024, lookahead_rounds=8))
+
+        def steps():
+            carry = sess.init_carry()
+            for inp in inputs:
+                carry, _ = sess.step(carry, inp)
+            return carry
+
+        carry, step_s = timed(steps)
+        assert bitwise(carry[0], p_ref), "serve: timed steps vs run"
+        pairs.append({"serve": serve_rates(snap2, serve_s, M * T),
+                      "step_rounds_per_s": T / step_s, "steps_s": step_s,
+                      "serve_minus_step_ms_a_round":
+                          (serve_s - step_s) / T * 1e3})
+    assert sess.scan_fn.captures == len(levels), "serve: a timed run captured"
+    rows[0]["timed_pairs"] = pairs
+
+    # (b) kill and resume, under the random attack
+    cfg_r = fig1_cfg("cwtm", attack="random", kwargs={"scale": 10.0})
+    p_ref_r, _, _ = session(cfg_r).run(T)
+    with tempfile.TemporaryDirectory() as d:
+        scfg = ServeConfig(capacity=1024, lookahead_rounds=8,
+                           checkpoint_every=CHECKPOINT_EVERY, checkpoint_dir=d)
+        sess = session(cfg_r)
+        payloads = worker_payloads(sess, T)[:KILL_AFTER]
+        server = AggregationServer(sess, T, scfg)
+        server.start()
+        workers = SimulatedWorkers(server, payloads,
+                                   jitter_s=SERVE_JITTER_S).start()
+        assert workers.join(timeout=SERVE_TIMEOUT_S) and not workers.failures
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while server.round < KILL_AFTER and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert server.round == KILL_AFTER, server.snapshot()
+        assert server.stop(drain=False, timeout=30.0)
+        server.close()
+        if server.error is not None:
+            raise RuntimeError(f"server error: {server.error!r}")
+        killed = latest_checkpoint(d, prefix="carry_")
+        start = KILL_AFTER // CHECKPOINT_EVERY * CHECKPOINT_EVERY
+        assert killed is not None and killed[1] == start, killed
+        sess2 = session(cfg_r)
+        resumed = AggregationServer.resume(sess2, T, scfg)
+        assert resumed.start_round == start
+        rest = worker_payloads(sess2, T, start=start)
+        resumed, snap_b, _, resume_s = serve(sess2, rest, scfg,
+                                             start_round=start, server=resumed)
+        final = latest_checkpoint(d, prefix="carry_")
+        assert bitwise(resumed.params, p_ref_r), "serve: resume vs run"
+        assert final[1] == T, final
+    rows.append({"stream": "b", "attack": "random", "killed_at_round": KILL_AFTER,
+                 "resumed_from": killed[1], "final_checkpoint": final[1],
+                 "bitwise_equal_run": True,
+                 **serve_rates(snap_b, resume_s, M * (T - start))})
+
+    # (c) stragglers
+    ref = session(cfg)
+    sched = ref.schedule(T)
+    carry = ref.init_carry()
+    for t in range(T):
+        inp = ref.round_inputs(sched, t)
+        dropped = [w for w, r in STRAGGLERS if r == t]
+        if dropped:
+            masks = np.array(inp.masks)
+            masks[..., dropped] = True
+            inp.masks = masks
+            keep = torch.tensor([w not in dropped for w in range(M)], device=dev)
+            inp.batches = tree_map(
+                lambda l: torch.where(keep.reshape((-1,) + (1,) * (l.ndim - 1)),
+                                      l, torch.zeros_like(l)), inp.batches)
+        carry, _ = ref.step(carry, inp)
+    sess = session(cfg)
+    server, snap_c, _, strag_s = serve(
+        sess, worker_payloads(sess, T),
+        ServeConfig(capacity=1024, lookahead_rounds=8, round_timeout_s=0.25),
+        drop=STRAGGLERS)
+    assert snap_c["stragglers_masked"] == len(STRAGGLERS), snap_c
+    assert snap_c["updates_accepted"] == M * T - len(STRAGGLERS), snap_c
+    assert bitwise(server.params, carry[0]), "serve: stragglers vs replay"
+    n_byz = {}
+    for t in sorted({r for _, r in STRAGGLERS}):
+        dropped = [w for w, r in STRAGGLERS if r == t]
+        want = int(np.logical_or(sched.masks[t][0],
+                                 np.isin(np.arange(M), dropped)).sum())
+        assert server.logs[t].n_byz == want, (t, server.logs[t], want)
+        n_byz[t] = want
+    rows.append({"stream": "c", "stragglers": STRAGGLERS,
+                 "stragglers_masked": snap_c["stragglers_masked"],
+                 "n_byz_on_straggler_rounds": n_byz,
+                 "bitwise_equal_step_replay": True,
+                 **serve_rates(snap_c, strag_s, snap_c["updates_accepted"])})
+
+    # (d) the smoke
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_smoke.main([])
+    assert rc == 0, out.getvalue()
+    rows.append({"stream": "d", "module": "repro_torch.serve.smoke",
+                 "rc": rc, "output": out.getvalue().strip()})
+    emit({"phase": "serve_path", "T": T, "m": M, "rule": "cwtm", "rows": rows})
+    return launches
+
+
+def heldout_loss(dev):
+    """The MLP's mean cross-entropy on its 4000 held-out points (the
+    objective of the halving: lower is better)."""
+    X, y = clf.gaussian_mixture_dataset(clf.N_CLASSES, clf.DIM,
+                                        clf.N_TRAIN + 4000, seed=0)
+    Xte = torch.from_numpy(X[clf.N_TRAIN:]).to(dev)
+    yte = torch.from_numpy(y[clf.N_TRAIN:]).long().to(dev)
+
+    def objective(params):
+        with torch.no_grad():
+            return float(clf.clf_loss(params, (Xte, yte)))
+    return objective
+
+
+def halving_path(task, grid):
+    """``Session.sweep_halving`` over ``grid`` of ``sweep_path`` on the
+    Figure-1 task, rungs at 50 and 100, keep 0.5, the held-out loss as the
+    objective: every survivor bitwise equal to a plain ``Session.sweep`` of
+    the surviving subset (params and logs); each pruned cell bitwise equal
+    to the sweep of the cells alive in its last segment, stopped at its
+    rung; every round of every lane batch a graph replay under the sync
+    check. Prints the pruned cells, the captures at each rung with their
+    seconds, and lanes·rounds/s beside the plain full sweep's, in turns."""
+    switchers, attacks, aggs, _ = sweep_grid(grid)
+    base = fig1_cfg("cwtm")
+    sess = build_session(base, mlp_task(task), m=M, opt=sgd(0.1), seed=0)
+    spec = SweepSpec(switchers=tuple(switchers),
+                     attacks=None if attacks is None else tuple(attacks),
+                     aggregators=tuple(aggs))
+    C = spec.lanes
+    objective = heldout_loss(task[0]["w1"].device)
+    rules = [AggSpec.coerce(g).rule for g in aggs]
+
+    def halving():
+        return sess.sweep_halving(spec, T, objective=objective, keep=0.5,
+                                  rungs=HALVING_RUNGS)
+
+    reset_launches()
+    with watch_replays() as modes, watch_captures() as caps:
+        out, first_s = timed(halving)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    alive = [c for c in range(C) if not out[c]["pruned"]]
+    # every round of every lane batch (one a rule among the live cells)
+    bounds = [0] + HALVING_RUNGS + [T]
+    replays = sum(
+        (b - a) * len({rules[c] for c in range(C) if out[c]["rounds_run"] >= b})
+        for a, b in zip(bounds, bounds[1:]))
+    assert len(modes) == replays == modes.count(SYNC_DEBUG_ERROR), \
+        (len(modes), replays)
+    subset = sess.sweep(spec.lane_subset(alive), T)
+    for j, c in enumerate(alive):
+        [(p, logs)] = out[c]["results"]
+        assert bitwise(p, subset[j][0]), f"halving {grid}: survivor {c}"
+        assert [vars(l) for l in logs] == [vars(l) for l in subset[j][1]]
+    for a, b in zip(bounds, bounds[1:-1]):
+        live = [c for c in range(C) if out[c]["rounds_run"] >= b]
+        pruned = [c for c in live if out[c]["rounds_run"] == b]
+        stopped = sess.sweep(spec.lane_subset(live), b)
+        for c in pruned:
+            [(p, logs)] = out[c]["results"]
+            i = live.index(c)
+            assert bitwise(p, stopped[i][0]), f"halving {grid}: pruned {c}"
+            assert [vars(l) for l in logs] == [vars(l) for l in stopped[i][1]]
+    lane_rounds = sum(o["rounds_run"] for o in out)
+    pairs = []
+    for _ in range(HALVING_TIMED_PAIRS):
+        _, halving_s = timed(halving)
+        _, sweep_s = timed(lambda: sess.sweep(spec, T))
+        pairs.append({"halving_lane_rounds_per_s": lane_rounds / halving_s,
+                      "sweep_lane_rounds_per_s": C * T / sweep_s,
+                      "halving_s": halving_s, "sweep_s": sweep_s})
+    by_rung = {}
+    for cap in caps:
+        r = by_rung.setdefault(str(cap["start"]), {"captures": 0, "s": 0.0,
+                                                   "lanes": []})
+        r["captures"] += len(cap["levels"])
+        r["s"] += cap["s"]
+        r["lanes"].append(cap["lanes"])
+    emit({"phase": "halving_path", "grid": grid, "lanes": C, "T": T, "m": M,
+          "rungs": HALVING_RUNGS, "keep": 0.5,
+          "lane_specs": [[sw[1]["K"], attacks[c] if attacks else base.attack,
+                          AggSpec.coerce(aggs[c]).label]
+                         for c, sw in enumerate(switchers)],
+          "pruned": {str(c): out[c]["rounds_run"] for c in range(C)
+                     if out[c]["pruned"]},
+          "survivors": alive, "survivors_bitwise_equal_subset_sweep": True,
+          "pruned_bitwise_equal_stopped_sweep": True,
+          "replays": len(modes),
+          "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+          "launches": launches, "captures_by_rung_start": by_rung,
+          "lane_rounds": lane_rounds, "first_halving_s": first_s,
+          "timed_pairs": pairs})
+    return launches
+
+
+# ------------------------------------------------------------- 9. model zoo
 
 ZOO_TIMED_RUNS = 3  # the kernel path again, graphs kept, for rounds/s
 ZOO_PLAIN_TOL = 1e-5  # of each leaf's largest |value|
@@ -1415,7 +1794,9 @@ def zoo_path(dev):
     recaptured = scan_fn.captures != captures
     loss1 = task.objective(p1)
     finite = all(bool(torch.isfinite(v).all()) for v in p1.values())
-    del scan_fn, p2
+    del p2
+    serve_launches = zoo_serve(task, dcfg, scan_fn)
+    del scan_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1477,10 +1858,64 @@ def zoo_path(dev):
     del task, p1
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, serve_launches
+
+
+ZOO_SERVE_T = 4
+
+
+def zoo_serve(task, dcfg, scan_fn):
+    """(e) of ``serve_path``: the aggregation server over the zoo path's
+    SmolLM-360M task (published width, 8 of 32 layers, m=17) for 4 rounds,
+    17 worker threads, the health polled over HTTP. Its session shares
+    ``zoo_path``'s scan_fn, whose kept graphs serve ``Session.step`` (no
+    second graph pool, no capture). Checks params and logs bitwise equal to
+    ``Session.run(4)`` of a session sharing the scan_fn, every round a
+    replay under the sync check, one ``cw_reduce`` launch an aggregation;
+    prints rounds/s and the peak memory allocated and reserved."""
+    dev = next(iter(task.params0.values())).device
+
+    def session():
+        return build_session(dcfg, task, opt=sgd(0.05), seed=0,
+                             switcher=get_switcher("periodic", M, n_byz=N_BYZ,
+                                                   K=4),
+                             scan_fn=scan_fn, microbatch=True)
+
+    captures = scan_fn.captures
+    p_ref, logs_ref, _ = session().run(ZOO_SERVE_T)
+    sess = session()
+    payloads = worker_payloads(sess, ZOO_SERVE_T)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with watch_replays() as modes:
+        server, snap, health, secs = serve(
+            sess, payloads, ServeConfig(capacity=1024, lookahead_rounds=8,
+                                        health_port=0), rounds=ZOO_SERVE_T)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    j_max = dcfg.mlmc.j_max
+    expected = sum(3 if 1 <= l.level <= j_max else 1 for l in logs_ref)
+    row = {"phase": "serve_path", "stream": "e", "arch": ZOO_ARCH,
+           "layers": ZOO_LAYERS, "T": ZOO_SERVE_T, "m": M,
+           "bitwise_equal_run": bitwise(server.params, p_ref),
+           "logs_equal": [vars(l) for l in server.logs] == [vars(l) for l in logs_ref],
+           "captures": scan_fn.captures - captures, "replays": len(modes),
+           "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+           "launches": launches, "expected_cw_reduce": expected,
+           "health": health,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
+           **serve_rates(snap, secs, snap["updates_accepted"])}
+    emit(row)
+    assert row["bitwise_equal_run"] and row["logs_equal"], "zoo serve vs run"
+    assert row["captures"] == 0, "zoo serve: a capture"
+    assert len(modes) == ZOO_SERVE_T == row["replays_under_sync_error"], modes
+    assert launches == {"cw_reduce": expected}, launches
+    assert snap["updates_accepted"] == M * ZOO_SERVE_T, snap
+    del server, sess, p_ref
     return launches
 
 
-# ------------------------------------------------------------- 9. timing
+# ------------------------------------------------------------- 10. timing
 
 
 def time_calls_us(fn, iters=1000, warmup=50):
@@ -1869,7 +2304,10 @@ def main():
     for grid in ("grid1", "grid2"):
         by_path[f"sweep {grid}"] = sweep_path(task, grid)
     matrix_path(dev)
-    by_path["zoo"] = zoo_path(dev)
+    by_path["serve"] = serve_path(task)
+    for grid in ("grid1", "grid2"):
+        by_path[f"halving {grid}"] = halving_path(task, grid)
+    by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"

@@ -19,7 +19,9 @@ theta form, the scenario grids) and carry checkpoints; the model zoo's dense
 family (``configs``, ``models``: SmolLM-360M, Qwen3-0.6B, Qwen2.5-32B,
 CodeQwen1.5-7B as DynaBRO tasks, ``make_zoo_task`` / ``task_for_config``,
 on ``data.SyntheticLMData``) through the compiled driver's ``microbatch=True``
-streaming. Its names are re-exported here.
+streaming; the successive-halving sweep ``Session.sweep_halving``; and the
+aggregation service ``repro_torch.serve`` (a threaded server stepping a
+``Session`` from worker updates). Its names are re-exported here.
 """
 from repro_torch.api import (
     AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, Optimizer, RoundInputs,
@@ -44,6 +46,10 @@ from repro_torch.data import SyntheticLMData, make_task
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import make_zoo_task, task_for_config
+from repro_torch.serve import (
+    AggregationServer, HealthEndpoint, MetricsLog, RingBuffer, ServeConfig,
+    ServeMetrics, SimulatedWorkers, Update, worker_payloads,
+)
 
 __all__ = [
     # repro.api's names
@@ -68,4 +74,8 @@ __all__ = [
     # the model zoo
     "SyntheticLMData", "make_zoo_task", "task_for_config",
     "zoo_params_from_numpy", "zoo_params_to_numpy",
+    # repro.serve's names
+    "AggregationServer", "ServeConfig", "Update", "RingBuffer",
+    "ServeMetrics", "MetricsLog", "HealthEndpoint",
+    "SimulatedWorkers", "worker_payloads",
 ]

@@ -13,7 +13,8 @@ the round loop at every granularity:
   (``"legacy"``), exactly as ``run_dynabro_scan`` / ``run_dynabro`` /
   ``run_momentum_scan`` / ``run_momentum``;
 - ``sweep(spec, T)``: the lane-batched sweep over a ``SweepSpec``
-  (``run_dynabro_scan_sweep`` wraps it).
+  (``run_dynabro_scan_sweep`` wraps it), and ``sweep_halving(spec, T,
+  objective=...)``, the successive-halving sweep that prunes cells at rungs.
 
 The compiled machinery (``make_*_scan_fn``, the schedules, the lane plans)
 stays in ``core.robust_train``, called through the module (``rt.``).
@@ -37,7 +38,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.api.specs import SweepSpec
 from repro_torch.core import attacks as attacks_lib
@@ -510,10 +511,159 @@ class Session:
             return results
         return [results[c * R:(c + 1) * R] for c in range(C)]
 
-    def sweep_halving(self, spec: SweepSpec, T: int, **kw):
-        """The JAX package's successive-halving sweep: not ported; raises
-        ``NotImplementedError`` naming its ROADMAP.md item."""
-        rt._refuse_unported(sweep_halving=True)
+    def sweep_halving(self, spec: SweepSpec, T: int, *,
+                      objective: Callable[[Any], float],
+                      keep: float = 0.5, rungs=None, lane_mesh=None,
+                      lane_axis: str = "lanes",
+                      min_cells: int = 1) -> List[Dict[str, Any]]:
+        """Adaptive successive-halving sweep: run every cell, and at each
+        rung boundary prune the worst cells, scored by the mean of
+        ``objective(params)`` (lower is better) over the cell's replicate
+        lanes, keeping a ``keep`` fraction (at least ``min_cells``; NaN
+        scores prune first; the sort is stable). Survivors continue from
+        their carries and generator states, sliced to the surviving lanes,
+        so a survivor's trajectory is bitwise identical to a plain
+        ``sweep`` of the surviving subset.
+
+        ``rungs`` is the increasing list of round counts at which to prune
+        (default: one prune at ``T // 2``). A mixed-rule grid runs as
+        ``sweep`` runs it, one lane batch per distinct rule (on a card the
+        level graphs of a batch whose lanes a rung pruned are captured
+        anew); the scores are global across the rules. Returns one dict per
+        cell, in caller order: ``{"pruned": bool, "rounds_run": int,
+        "results": [(params, logs), ...]}`` with one entry per replicate; a
+        pruned cell's results are its state at the rung that dropped it.
+        ``lane_mesh`` is not ported and raises ``NotImplementedError``."""
+        rt._refuse_unported(lane_mesh=lane_mesh)
+        if self.mode != "dynabro":
+            raise ValueError("sweeps are dynabro-mode only")
+        spec = spec if isinstance(spec, SweepSpec) else SweepSpec(**spec)
+        if isinstance(spec.scan_fn, Mapping):
+            raise ValueError(
+                "sweep_halving scores a mixed-rule grid across all its "
+                "rules; pass a plain scan_fn (or None), not a {rule: "
+                "scan_fn} mapping")
+        cfg = self.cfg
+        C = spec.lanes
+        R = spec.n_replicates
+        if C == 0:
+            return []
+        if T <= 0:
+            raise ValueError("sweep_halving needs T >= 1")
+        if not 0.0 < keep <= 1.0:
+            raise ValueError(f"keep= must be in (0, 1], got {keep}")
+        if rungs is None:
+            rungs = [T // 2] if T >= 2 else []
+        rungs = [int(r) for r in rungs]
+        if any(not 0 < r < T for r in rungs) or \
+                any(b <= a for a, b in zip(rungs, rungs[1:])):
+            raise ValueError(
+                f"rungs= must be strictly increasing round counts in "
+                f"(0, T={T}), got {rungs}")
+
+        attacks = spec.attack_lanes()
+        aggregators = spec.agg_lanes()
+        (levels, ns, n_max, masks, gen_seeds, samplers,
+         replicated) = self._sweep_streams(spec, T)
+        masks = masks.reshape((C, R) + masks.shape[-3:])
+        j_max = cfg.mlmc.j_max
+        dev = tree_leaves(self.params0)[0].device
+        # the lane batches of ``sweep``: one per distinct rule, unless a
+        # plain scan_fn runs them all
+        names = [name for name, _ in aggregators] if aggregators else None
+        if names is None or spec.scan_fn is not None:
+            batches_of = [list(range(C))]
+        else:
+            batches_of = [[c for c in range(C) if names[c] == name]
+                          for name in dict.fromkeys(names)]
+
+        def lanes(tree, n):  # the same start in every lane
+            return tree_map(lambda l: l.expand((n,) + l.shape).clone(), tree)
+
+        groups = []
+        for cells in batches_of:
+            (atk_names, agg_names), plan = rt.make_lane_plan(
+                cfg, len(cells),
+                None if attacks is None else [attacks[c] for c in cells],
+                None if aggregators is None else [aggregators[c] for c in cells])
+            n = len(cells) * R
+            groups.append({
+                "cells": cells,
+                "fn": self._sweep_scan_fn(spec.scan_fn, atk_names, agg_names),
+                "plan": plan.repeat(R) if replicated else plan,
+                "carry": (lanes(self.params0, n),
+                          lanes(self.opt.init(self.params0), n)),
+                "seeds": gen_seeds, "oks": []})
+
+        def results(g, j, b):
+            """(params, logs) per replicate of the group's j-th live cell
+            after round b."""
+            ok = np.concatenate(g["oks"])
+            cell = g["cells"][j]
+            return [(tree_map(lambda l, i=j * R + r: l[i].clone(),
+                              g["carry"][0]),
+                     rt._round_logs(levels[:b], ok[:, j * R + r],
+                                    masks[cell, r], j_max))
+                    for r in range(R)]
+
+        outs: List[Optional[Dict[str, Any]]] = [None] * C
+        a = 0
+        for b in rungs + [T]:
+            drawn = {}
+
+            def batches(x, y):  # one draw of the segment for every group
+                if (x, y) not in drawn:
+                    drawn[(x, y)] = self._sweep_batches(samplers, x, y, ns,
+                                                        n_max, replicated)
+                return drawn[(x, y)]
+
+            for g in groups:
+                if not g["cells"]:
+                    continue
+                lane_masks = masks[g["cells"]].reshape((-1,) + masks.shape[-3:])
+                g["carry"], ok, _ = g["fn"].run(
+                    g["carry"], levels,
+                    np.ascontiguousarray(np.swapaxes(lane_masks, 0, 1)),
+                    batches, [b], g["seeds"], lane=g["plan"], start=a,
+                    whole_carry=True)
+                g["oks"].append(ok)
+                g["seeds"] = tuple(gen.get_state() for gen in
+                                   g["fn"].generators(dev, len(gen_seeds)))
+            if b == T:
+                break
+            # prune: the replicate-mean objective over every live cell of
+            # every group, in caller order; lower is better
+            live = sorted((cell, gi, j) for gi, g in enumerate(groups)
+                          for j, cell in enumerate(g["cells"]))
+            res = {cell: results(groups[gi], j, b) for cell, gi, j in live}
+            finals = np.array([[float(objective(p)) for p, _ in res[cell]]
+                               for cell, _, _ in live])
+            scores = np.where(np.isnan(finals), np.inf, finals).mean(axis=1)
+            k = min(max(int(min_cells), int(np.ceil(len(live) * keep))),
+                    len(live))
+            order = np.argsort(scores, kind="stable")
+            kept = {live[int(i)][0] for i in order[:k]}
+            for cell in res:
+                if cell not in kept:
+                    outs[cell] = {"pruned": True, "rounds_run": b,
+                                  "results": res[cell]}
+            for g in groups:
+                js = [j for j, cell in enumerate(g["cells"]) if cell in kept]
+                if len(js) == len(g["cells"]):
+                    continue
+                idx = [j * R + r for j in js for r in range(R)]
+                sel = torch.tensor(idx, dtype=torch.long, device=dev)
+                g["carry"] = tree_map(lambda l: l.index_select(0, sel),
+                                      g["carry"])
+                g["plan"] = g["plan"].take(idx)
+                g["oks"] = [o[:, idx] for o in g["oks"]]
+                g["cells"] = [g["cells"][j] for j in js]
+            a = b
+        for g in groups:
+            for j, cell in enumerate(g["cells"]):
+                outs[cell] = {"pruned": False, "rounds_run": T,
+                              "results": results(g, j, T)}
+        return outs
 
 
 def _task_sampler_factory(task, m: int):

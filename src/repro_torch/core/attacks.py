@@ -25,8 +25,8 @@ mapped over the n computations with ``torch.func.vmap``.
 The theta forms at the bottom (``ATTACK_PARAMS``, ``attack_theta``,
 ``uniform_attack``, ``attack_switch``) carry an attack's parameters as a
 float32 row, so the lanes of a sweep may differ in attack and parameters:
-``attack_switch`` runs each distinct attack once, on its own lanes, with
-their rows as tensors. In a round ``random`` draws its noise once from the
+``attack_switch`` runs each distinct attack on its own lanes, one lane at
+a time, with their rows as tensors. In a round ``random`` draws its noise once from the
 run's generator, as a lone run does, and every ``random`` lane scales the
 same draw by its own ``scale``.
 """
@@ -236,12 +236,14 @@ def attack_switch(names: Sequence[str]) -> Callable:
     (C host ints) index ``names``; ``stacked`` is a dict of (C, n, m, ...)
     leaves (each lane's n within-round stacks), ``masks`` (C, n, m) bool and
     ``theta`` (C, N_PARAMS) float32 on the leaves' device. Each distinct
-    attack runs once, on its own lanes, under ``torch.func.vmap`` over the
-    lanes (and over the n computations) with their theta rows; nothing runs
-    every attack and selects. ``random`` draws one noise stack a round
-    from ``generator``, the draw a lone run makes, and each of its lanes
-    scales it by its own ``scale``. Returns the attacked leaves in lane
-    order."""
+    attack runs on its own lanes with their theta rows, one lane at a time
+    (a ``vmap`` over the lane's n computations); nothing runs every attack and selects. A lane's
+    bits do not depend on the lanes beside it: batched over lanes, ipm's
+    honest mean becomes a batched product whose cuBLAS kernel, and so its
+    sums, change with the lane count. ``random`` draws one noise stack a
+    round from ``generator``, the draw a lone run makes, and each of its
+    lanes scales it by its own ``scale`` (element-wise, under ``vmap``).
+    Returns the attacked leaves in lane order."""
     names = tuple(names)
     for name in names:
         if name not in ATTACK_PARAMS:
@@ -258,7 +260,9 @@ def attack_switch(names: Sequence[str]) -> Callable:
             return vmap(lambda s, m, t: apply_noise(s, m, noise, t[0]))(
                 sub, mk, th)
         per_unit = vmap(forms[name], in_dims=(0, 0, None, None))
-        return vmap(per_unit, in_dims=(0, 0, None, 0))(sub, mk, generator, th)
+        lanes = [per_unit({k: v[c] for k, v in sub.items()}, mk[c], generator,
+                          th[c]) for c in range(mk.shape[0])]
+        return {k: torch.stack([lane[k] for lane in lanes]) for k in sorted(sub)}
 
     def apply(ids, stacked, masks, generator, theta):
         ids = [int(i) for i in ids]

@@ -34,9 +34,9 @@ share the level plan and the batches as lanes of one compiled round: each
 lane's per-worker gradients, the attacks and rules per lane group from
 their theta rows (``attacks.attack_switch``, ``agg_engine.agg_switch``:
 the coordinate-wise rules in one lane reduce for all their lanes, the
-geometry rules once per lane), ``mlmc_combine`` per lane at its own
-fail-safe bound, and the optimizer under ``vmap``; on a card one CUDA
-graph per level replays the whole lane batch.
+geometry rules once per lane), ``mlmc_combine`` and the optimizer per
+lane; on a card one CUDA graph per level replays the whole lane batch.
+A lane's bits do not depend on the other lanes of its batch.
 """
 from __future__ import annotations
 
@@ -421,7 +421,6 @@ _UNPORTED = {
     "lane_mesh": "Multi-device",
     "param_specs": "Multi-device",  # the JAX package's GSPMD sharding
     "guard_recompiles": "lint/",
-    "sweep_halving": "Successive-halving sweeps",
 }
 
 
@@ -464,6 +463,16 @@ def _graph_shapes(carry, batch_rows, mask_rows, lane=None) -> tuple:
     lanes = None if lane is None else (lane[0].key, signature(lane[1]))
     return (tree_leaves(carry)[0].device, signature(carry),
             signature(batch_rows, 1), tuple(mask_rows.shape[1:]), lanes)
+
+
+def _seed_generators(gens, seeds) -> None:
+    """Seed each generator, or set it to a ``get_state()`` tensor given in
+    place of its seed."""
+    for gen, s in zip(gens, seeds):
+        if isinstance(s, torch.Tensor):
+            gen.set_state(s)
+        else:
+            gen.manual_seed(int(s))
 
 
 def _call_round(round_fn, carry, batch, masks, key, generators, lane):
@@ -659,24 +668,30 @@ class ScanFn:
         return g
 
     def run(self, carry, keys, masks: np.ndarray, batches, bounds, seed,
-            eval_fn=None, eval_every: int = 0, lane=None):
-        """Run the rounds of ``keys`` (T,) in the segments ending at
-        ``bounds``: ``batches(a, b)`` gives rounds a..b-1's schedule (tree
-        leading (b - a, ...)), ``masks`` (T, ...) every round's. ``seed``
-        seeds the generator, or is one seed per replicate of a sweep;
-        ``lane`` is a sweep's ``LanePlan``. Returns (params, flags (T,) or
-        (T, C) bool array or None, evals)."""
+            eval_fn=None, eval_every: int = 0, lane=None, start: int = 0,
+            whole_carry: bool = False):
+        """Run the rounds ``start`` .. ``bounds[-1]`` - 1 of ``keys`` (T,)
+        from ``carry``, in the segments ending at ``bounds``: ``batches(a,
+        b)`` gives rounds a..b-1's schedule (tree leading (b - a, ...)),
+        ``masks`` (T, ...) every round's. ``seed`` seeds the generator, or
+        is one seed per replicate of a sweep; a seed given as a
+        ``get_state()`` tensor sets the generator to that state instead (a
+        run that continues an earlier one from round ``start``). ``lane`` is
+        a sweep's ``LanePlan``. Returns (params, or the whole carry with
+        ``whole_carry``; the rounds' flags, a (rounds,) or (rounds, C) bool
+        array, or None; evals)."""
         dev = tree_leaves(carry)[0].device
-        seeds = (seed,) if isinstance(seed, (int, np.integer)) else tuple(seed)
+        seeds = ((seed,) if isinstance(seed, (int, np.integer, torch.Tensor))
+                 else tuple(seed))
         gens = self.generators(dev, len(seeds))
         masks_dev = torch.as_tensor(masks, device=dev)
         lane_dev = None if lane is None else (lane, lane.tensors(dev))
         if dev.type == "cuda":
             return self._run_graphs(carry, keys, masks_dev, batches, bounds,
-                                    seeds, gens, eval_fn, eval_every, lane_dev)
-        for gen, s in zip(gens, seeds):
-            gen.manual_seed(int(s))
-        oks, dns, evals, a = [], [], [], 0
+                                    seeds, gens, eval_fn, eval_every, lane_dev,
+                                    start, whole_carry)
+        _seed_generators(gens, seeds)
+        oks, dns, evals, a = [], [], [], start
         for b in bounds:
             seg = batches(a, b)
             flags = []
@@ -693,30 +708,31 @@ class ScanFn:
             a = b
         self.corr_norms = (torch.stack(dns).to(F32).cpu().numpy()
                            if self.flags else None)
-        return carry[0], (np.concatenate(oks) if self.flags else None), evals
+        return (carry if whole_carry else carry[0],
+                np.concatenate(oks) if self.flags else None, evals)
 
     def _run_graphs(self, carry, keys, masks_dev, batches, bounds, seeds, gens,
-                    eval_fn, eval_every, lane):
+                    eval_fn, eval_every, lane, start, whole_carry):
         T = len(keys)
-        L = max(b - a for a, b in zip([0] + bounds[:-1], bounds))
-        seg = batches(0, bounds[0])
+        L = max(b - a for a, b in zip([start] + bounds[:-1], bounds))
+        seg = batches(start, bounds[0])
         with torch.cuda.device(masks_dev.device):
             g = self._level_graphs(carry, seg, masks_dev, gens, L, T, lane)
-            new = sorted({int(k) for k in keys} - set(g.graphs))
+            new = sorted({int(k) for k in keys[start:bounds[-1]]}
+                         - set(g.graphs))
             g.capture(new)
             self.captures += len(new)
             # the captures above warmed up on the generators: seed them after
-            for gen, s in zip(gens, seeds):
-                gen.manual_seed(int(s))
+            _seed_generators(gens, seeds)
             tree_map(lambda dst, src: dst.copy_(src), g.carry, carry)
             if lane is not None:
                 for k, v in lane[1].items():
                     g.lane[1][k].copy_(v)
             g.masks[:T].copy_(masks_dev)
-            g.gidx.zero_()
-            oks, evals, a = [], [], 0
+            g.gidx.fill_(start)
+            oks, evals, a = [], [], start
             for b in bounds:
-                if a:
+                if a > start:
                     seg = batches(a, b)
                 tree_map(lambda dst, src: dst[:b - a].copy_(src), g.batches, seg)
                 g.sidx.zero_()
@@ -727,10 +743,10 @@ class ScanFn:
                     evals.append((b, eval_fn(tree_map(torch.clone, g.carry[0]),
                                              b - 1)))
                 a = b
-            params = tree_map(torch.clone, g.carry[0])
-            self.corr_norms = (g.corr_norm[:T].cpu().numpy() if self.flags
-                               else None)
-        return params, (np.concatenate(oks) if self.flags else None), evals
+            out = tree_map(torch.clone, g.carry if whole_carry else g.carry[0])
+            self.corr_norms = (g.corr_norm[start:bounds[-1]].cpu().numpy()
+                               if self.flags else None)
+        return out, (np.concatenate(oks) if self.flags else None), evals
 
     def run_round(self, carry, key: int, batch, masks,
                   state: Optional[torch.Tensor] = None):
@@ -939,6 +955,16 @@ class LanePlan:
                                                  np.float32), device=dev)
                 for name in ("attack_theta", "agg_theta", "thr_coeff")}
 
+    def take(self, idx) -> "LanePlan":
+        """The plan of the lanes ``idx``, in that order (whole cells of a
+        replicated plan: the lanes stay cell-major)."""
+        idx = [int(i) for i in idx]
+        return LanePlan(tuple(self.attack_ids[i] for i in idx),
+                        tuple(self.agg_ids[i] for i in idx),
+                        np.asarray(self.attack_theta)[idx],
+                        np.asarray(self.agg_theta)[idx],
+                        np.asarray(self.thr_coeff)[idx], self.replicates)
+
     def repeat(self, R: int) -> "LanePlan":
         """The plan of R replicate lanes per lane (cell-major)."""
         rep = lambda a: np.repeat(np.asarray(a), R, axis=0)  # noqa: E731
@@ -1010,6 +1036,21 @@ def make_lane_plan(cfg: DynaBROConfig, lanes: int, attacks=None,
     return (atk_names, agg_names), plan
 
 
+def _lane_opt_step(opt: Optimizer, params, opt_state, grads):
+    """The optimizer step of a lane batch, a lane at a time: ``params`` and
+    ``opt_state`` lead with the lane axis C, ``grads`` is the C lanes'
+    gradient dicts. Under ``vmap`` adagrad_norm's norm would be a batched
+    reduction whose sums change with the lane count on a card."""
+    steps = []
+    for c, g in enumerate(grads):
+        p = {k: v[c] for k, v in params.items()}
+        updates, state = opt.update(
+            g, tree_map(lambda l, c=c: l[c], opt_state), p)
+        steps.append((apply_updates(p, updates), state))
+    params = {k: torch.stack([st[0][k] for st in steps]) for k in sorted(params)}
+    return params, tree_map(lambda *ls: torch.stack(ls), *[st[1] for st in steps])
+
+
 def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
                   lane_attacks, lane_aggregators) -> ScanFn:
     """The sweep's compiled round loop over a ``LanePlan``'s lanes (the
@@ -1028,10 +1069,15 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
       kernels are ctypes calls;
     - ``mlmc_combine`` per lane at the lane's own bound, coefficient /
       √(2^J) in float32 as ``MLMCConfig.threshold`` computes it;
-    - the optimizer under ``vmap``.
+    - the optimizer a lane at a time.
 
-    Each lane's round is the round of a lone ``run_dynabro_scan`` of that
-    lane, up to the rounding of the batched attacks and optimizer."""
+    Every op batched over the lanes gives a lane the bits it gives that
+    lane alone (the unit means, the lane reduce, the noise of ``random``;
+    the card test ``test_lane_round_ops_ignore_the_lane_count`` holds them
+    at 8, 5, 3, 2 and 1 lanes), so a lane of a sweep is the same lane of
+    any sweep of a subset of its lanes (what ``Session.sweep_halving``
+    needs). Each lane's round is the round of a lone ``run_dynabro_scan``
+    of that lane, up to the rounding of the rules' lane forms."""
     atk_names = (tuple(lane_attacks) if lane_attacks is not None
                  else (cfg.attack,))
     agg_names = (tuple(lane_aggregators) if lane_aggregators is not None
@@ -1107,11 +1153,10 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
                 g, info = mlmc_combine(lane_of(g0, c), None, None, j_max + 1,
                                        cfg.mlmc)
                 outs.append((g if g_all is None else lane_of(g_all, c), info))
-        g = {k: torch.stack([o[0][k] for o in outs]) for k in sorted(grads)}
         ok = torch.stack([o[1]["failsafe_ok"] for o in outs])
         dn = torch.stack([o[1]["corr_norm"] for o in outs])
-        updates, opt_state = vmap(opt.update)(g, opt_state, params)
-        params = vmap(apply_updates)(params, updates)
+        params, opt_state = _lane_opt_step(opt, params, opt_state,
+                                           [g for g, _ in outs])
         return (params, opt_state), ok, dn
 
     scan_fn = ScanFn(round_fn, flags=True)
@@ -1152,11 +1197,11 @@ def run_dynabro_scan_sweep(
 
     Each lane equals a lone ``run_dynabro_scan`` of that lane's switcher,
     attack and rule in its round logs (fail-safe flags included) and in
-    every discrete choice, and in its params within the rounding that the
-    lanes' batched attacks and optimizer bring (1e-6 for CWTM, 1e-5 for
-    the geometry rules on the card at the Figure-1 setting). On a card one
-    CUDA graph per level replays the whole lane batch, with one
-    ``cw_reduce`` launch an aggregation for the coordinate-wise lanes.
+    every discrete choice, and in its params within the rounding of the
+    rules' lane forms (1e-6 for CWTM, 1e-5 for the geometry rules on the
+    card at the Figure-1 setting). On a card one CUDA graph per level
+    replays the whole lane batch, with one ``cw_reduce`` launch an
+    aggregation for the coordinate-wise lanes.
 
     A wrapper over ``repro_torch.api.Session.sweep`` with a validated
     ``SweepSpec``."""

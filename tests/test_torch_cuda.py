@@ -1156,6 +1156,197 @@ def test_sweep_lanes_match_lone_runs_on_card(cuda_device):
                 assert float((p[k] - p1[k]).abs().max()) <= lim, (c, k)
 
 
+@pytest.mark.parametrize("attack", ["sign_flip", "random"])
+def test_served_stream_equals_run_on_card(cuda_device, attack):
+    """T=24 of the Figure-1 setting served from 17 worker threads (2 ms
+    jitter): params and logs bitwise equal to ``Session.run``; each level's
+    graph captured once, on the serve thread, the first capture with every
+    worker thread alive; every round a replay under the sync check."""
+    import threading
+
+    from repro_torch import (AggregationServer, ServeConfig, SimulatedWorkers,
+                             Task, build_session, sgd, worker_payloads)
+    from repro_torch.core import robust_train as rt
+    (params0, grad_fn, sampler, _), cfg = _fig1(
+        cuda_device, attack=attack, kwargs={"scale": 10.0} if attack == "random"
+        else None)
+    task = Task(params0, grad_fn, lambda m: sampler, lambda p: 0.0)
+    T = 24
+
+    def session():
+        return build_session(cfg, task, opt=sgd(0.1), switcher=_fig1_switcher())
+
+    p_run, logs, _ = session().run(T)
+    sess = session()
+    payloads = worker_payloads(sess, T)
+    captures, modes = [], []
+    capture, replay = rt._LevelGraphs.capture, torch.cuda.CUDAGraph.replay
+
+    def watched_capture(self, keys):
+        alive = sum(t.is_alive() for t in threading.enumerate()
+                    if t.name.startswith("serve-worker"))
+        captures.append((threading.current_thread().name, list(keys), alive))
+        capture(self, keys)
+
+    def watched_replay(graph):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(graph)
+
+    rt._LevelGraphs.capture = watched_capture
+    torch.cuda.CUDAGraph.replay = watched_replay
+    try:
+        server = AggregationServer(sess, T, ServeConfig(lookahead_rounds=4))
+        server.start()
+        workers = SimulatedWorkers(server, payloads, jitter_s=0.002).start()
+        assert workers.join(timeout=30.0) and not workers.failures
+        assert server.join(timeout=30.0), server.snapshot()
+    finally:
+        rt._LevelGraphs.capture = capture
+        torch.cuda.CUDAGraph.replay = replay
+    server.close()
+    assert server.error is None, server.error
+    for k in p_run:
+        assert torch.equal(server.params[k], p_run[k]), k
+    assert [vars(l) for l in server.logs] == [vars(l) for l in logs]
+    levels = sorted({l.level for l in logs})
+    assert sorted(k for _, keys, _ in captures for k in keys) == levels
+    assert all(name == "serve-loop" for name, _, _ in captures), captures
+    assert captures[0][2] == FIG1["m"], captures
+    assert len(modes) == T and set(modes) == {2}, modes  # 2: "error"
+
+
+def test_sweep_halving_survivors_on_card(cuda_device):
+    """T=24 of the Figure-1 setting with adagrad_norm, rungs at 8 and 16:
+    CWTM lanes under sign_flip, ipm, random and alie at two deltas, Krum
+    and NNM+CWTM lanes; every survivor bitwise equal to a sweep of the
+    surviving subset, each cell pruned at the first rung bitwise equal to
+    the full grid's sweep stopped there."""
+    from repro_torch import SweepSpec, Task, adagrad_norm, build_session
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+    task = Task(params0, grad_fn, lambda m: sampler, lambda p: 0.0)
+    T = 24
+    sess = build_session(cfg, task, m=FIG1["m"], opt=adagrad_norm(0.5))
+    sws = tuple(("periodic", {"n_byz": FIG1["n_byz"], "K": k})
+                for k in (10, 25, 10, 25, 10, 25))
+    spec = SweepSpec(
+        switchers=sws,
+        attacks=("sign_flip", "ipm", ("random", {"scale": 10.0}), "alie",
+                 "ipm", "sign_flip"),
+        aggregators=(("cwtm", {"delta": FIG1["delta"]}), ("cwtm", {"delta": 0.35}),
+                     ("cwtm", {"delta": 0.35}), ("cwtm", {"delta": FIG1["delta"]}),
+                     ("krum", {"delta": FIG1["delta"]}),
+                     ("nnm+cwtm", {"delta": 0.35})))
+
+    def objective(p):
+        return float(sum(v.double().square().sum() for v in p.values()))
+
+    out = sess.sweep_halving(spec, T, objective=objective, keep=0.5,
+                             rungs=[8, 16])
+    alive = [c for c, o in enumerate(out) if not o["pruned"]]
+    assert 0 < len(alive) < spec.lanes
+    for j, (p, logs) in enumerate(sess.sweep(spec.lane_subset(alive), T)):
+        [(ph, lh)] = out[alive[j]]["results"]
+        assert [vars(l) for l in lh] == [vars(l) for l in logs]
+        for k in p:
+            assert torch.equal(ph[k], p[k]), (alive[j], k)
+    stopped = sess.sweep(spec, 8)
+    for c, o in enumerate(out):
+        if o["rounds_run"] == 8:
+            [(ph, lh)] = o["results"]
+            assert [vars(l) for l in lh] == [vars(l) for l in stopped[c][1]]
+            assert all(torch.equal(ph[k], stopped[c][0][k]) for k in ph), c
+
+
+LANE_COUNTS = (8, 5, 3, 2, 1)
+FIG1_LEAVES = {"b1": (128,), "b2": (10,), "w1": (64, 128), "w2": (128, 10)}
+
+
+def _lane_leaves(dev, lead, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(lead + shape, generator=g).to(dev)
+            for k, shape in FIG1_LEAVES.items()}
+
+
+def _first_lanes(tree, C):
+    return {k: v[:C].contiguous() for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("family", ["attacks", "unit_means", "optimizers",
+                                    "aggregators"])
+def test_lane_round_ops_ignore_the_lane_count(cuda_device, family):
+    """What the sweep's lane round batches over the lanes, at the Figure-1
+    leaves (m=17): each lane's bits are the same in batches of 8, 5, 3, 2
+    and 1 lanes, so the halving's survivors equal a sweep of the surviving
+    subset."""
+    from torch.func import vmap
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.core import attacks as attacks_lib
+    from repro_torch.core.robust_train import _lane_opt_step
+    from repro_torch.core.agg_engine import agg_switch, agg_theta
+    from repro_torch.core.mlmc import MLMCConfig
+    from repro_torch.optim import optimizers
+    m, n = FIG1["m"], 4
+    masks = torch.rand(8, n, m, generator=torch.Generator().manual_seed(1)) < 0.4
+    masks = masks.to(cuda_device)
+
+    def check(run):
+        full = run(8)
+        for C in LANE_COUNTS[1:]:
+            part = run(C)
+            for k in part:
+                assert torch.equal(part[k], full[k][:C]), (family, C, k)
+
+    if family == "attacks":
+        names = ("sign_flip", "ipm", "alie", "shift", "random", "none")
+        ids = [0, 1, 1, 2, 3, 4, 2, 1]
+        theta = torch.from_numpy(np.stack([
+            attacks_lib.attack_theta(names[i]) for i in ids])).to(cuda_device)
+        stack = _lane_leaves(cuda_device, (8, n, m))
+        apply = attacks_lib.attack_switch(names)
+        gen = torch.Generator(device=cuda_device)
+
+        def run(C):
+            gen.manual_seed(5)
+            return apply(ids[:C], _first_lanes(stack, C), masks[:C], gen,
+                         theta[:C])
+        check(run)
+    elif family == "unit_means":
+        for units in (1, 2, 4, 32):
+            grads = _lane_leaves(cuda_device, (8, m, units), seed=units)
+            check(lambda C: {k: v.mean(2) for k, v in
+                             _first_lanes(grads, C).items()})
+            check(lambda C: {k: v[:, :, : max(units // 2, 1)].mean(2)
+                             for k, v in _first_lanes(grads, C).items()})
+    elif family == "optimizers":  # the lane round's step, a lane at a time
+        params = _lane_leaves(cuda_device, (8,), seed=2)
+        grads = _lane_leaves(cuda_device, (8,), seed=3)
+        for opt in (optimizers.sgd(0.1), optimizers.adagrad_norm(0.5),
+                    optimizers.adam(0.05), optimizers.momentum(0.1)):
+            state = vmap(opt.init)(params)
+
+            def run(C):
+                p, s = _lane_opt_step(
+                    opt, _first_lanes(params, C),
+                    tree_map(lambda l: l[:C].contiguous(), state),
+                    [{k: v[c] for k, v in grads.items()} for c in range(C)])
+                return {**p, **{f"state/{i}": l for i, l in
+                                enumerate(tree_leaves(s))}}
+            check(run)
+    else:
+        mlmc = MLMCConfig(T=150, m=m, V=5.0, kappa=1.0, j_cap=5)
+        names = ("cwtm", "cwmed", "mean", "krum", "nnm+cwtm", "geomed", "mfm")
+        ids = [0, 0, 1, 2, 3, 4, 5, 6]
+        theta = torch.from_numpy(np.stack([
+            agg_theta(names[i], {"delta": FIG1["delta"]} if names[i] in
+                      ("cwtm", "krum", "nnm+cwtm") else {}) for i in ids]))
+        theta = theta.to(cuda_device)
+        apply = agg_switch(names, backend="auto", mlmc=mlmc)
+        stack = _lane_leaves(cuda_device, (8, m), seed=4)
+        for nn in (1, 4):
+            check(lambda C: apply(ids[:C], _first_lanes(stack, C), nn, theta[:C]))
+
+
 # ------------------------------------------------- the model zoo on the card
 
 

@@ -54,7 +54,10 @@ def test_every_module_imports_with_jax_blocked():
 
 FACADE = ["repro_torch.api", "repro_torch.api.session", "repro_torch.api.specs",
           "repro_torch.core.scenarios", "repro_torch.checkpoint",
-          "repro_torch.checkpoint.checkpoint"]
+          "repro_torch.checkpoint.checkpoint", "repro_torch.serve",
+          "repro_torch.serve.client", "repro_torch.serve.health",
+          "repro_torch.serve.metrics", "repro_torch.serve.ring",
+          "repro_torch.serve.server", "repro_torch.serve.smoke"]
 
 
 @pytest.mark.parametrize("module", FACADE)
@@ -67,12 +70,18 @@ def test_facade_module_is_checked(module):
 
 def test_facade_names_are_the_jax_packages():
     """``repro_torch.api`` and ``repro_torch`` export every name of
-    ``repro.api.__all__`` and of ``repro.checkpoint``."""
+    ``repro.api.__all__`` and of ``repro.checkpoint``, and
+    ``repro_torch.serve`` and ``repro_torch`` every name of
+    ``repro.serve.__all__``."""
     import repro.api
     import repro.checkpoint
+    import repro.serve
     import repro_torch
     import repro_torch.api
     import repro_torch.checkpoint
+    import repro_torch.serve
+    assert set(repro.serve.__all__) == set(repro_torch.serve.__all__)
+    assert set(repro.serve.__all__) <= set(repro_torch.__all__)
     assert set(repro.api.__all__) <= set(repro_torch.api.__all__)
     assert set(repro.api.__all__) <= set(repro_torch.__all__)
     assert set(repro.checkpoint.__all__) == set(repro_torch.checkpoint.__all__)

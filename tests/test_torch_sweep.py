@@ -181,8 +181,6 @@ def test_empty_sweeps_and_unported_options():
     spec = t_specs.SweepSpec(switchers=tuple(_switchers(1)))
     with pytest.raises(NotImplementedError, match="Multi-device"):
         ts.sweep(spec, T, lane_mesh=object())
-    with pytest.raises(NotImplementedError, match="halving"):
-        ts.sweep_halving(spec, T, objective=lambda p: 0.0)
     mom = t_session.Session(_cfgs()[0], grad_fn=None, params0=None,
                             mode="momentum", lr=0.1, beta=0.9, m=M)
     with pytest.raises(ValueError, match="dynabro-mode"):
