@@ -3,6 +3,7 @@
 
     python3 benchmarks_torch/profile_main_path.py [--T 150] [--aggregator cwtm]
         [--driver round|scan] [--attack sign_flip] [--task mlp|zoo]
+        [--arch smollm-360m]
 
 ``--task mlp`` (the default) runs the Figure-1 setting of chip_smoke.py
 (m=17, 8 Byzantine, Periodic(10), δ = 8/17 + 1e-3, the 64-128-10 MLP) under
@@ -16,7 +17,9 @@ and adagrad_norm(0.5)) through one driver: ``round`` is ``run_dynabro``,
 over SmolLM-360M at its published width, 8 of its 32 layers, seq_len 128,
 m=17 with 8 Byzantine under Periodic(4), ``MLMCConfig(T, V=5, kappa=1,
 j_cap=3)``, sgd(0.05), through ``run_dynabro_scan(microbatch=True)`` (the
-scan driver; ``--T`` defaults to 16 there).
+scan driver; ``--T`` defaults to 16 there). ``--arch`` picks the model
+(``zoo_families_path``'s): whisper-base at its published width and depth,
+or another arch id at ``get_reduced_config(arch, d_model=512)``.
 
 Each aggregation backend in turn (``auto`` = the CUDA kernels, ``ref`` =
 the plain PyTorch versions) gets a warm-up run, a timed run without the
@@ -47,12 +50,13 @@ from repro_torch import (  # noqa: E402
     DynaBROConfig, MLMCConfig, adagrad_norm, get_switcher,
     make_dynabro_scan_fn, make_task, run_dynabro, run_dynabro_scan, sgd,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.core.attacks import ATTACKS  # noqa: E402
 from repro_torch.models import task_for_config  # noqa: E402
 
 M, N_BYZ = 17, 8
 ZOO_ARCH, ZOO_LAYERS, ZOO_SEQ = "smollm-360m", 8, 128
+FULL_WIDTH = ("whisper-base",)  # archs the zoo runs at published size
 K1_KERNEL = "cw_reduce_kernel"
 
 
@@ -72,7 +76,13 @@ def setting(args):
     microbatch) of the task."""
     option = 2 if args.aggregator == "mfm" else 1
     if args.task == "zoo":
-        cfg_model = dataclasses.replace(get_config(ZOO_ARCH), n_layers=ZOO_LAYERS)
+        if args.arch == ZOO_ARCH:
+            cfg_model = dataclasses.replace(get_config(ZOO_ARCH),
+                                            n_layers=ZOO_LAYERS)
+        elif args.arch in FULL_WIDTH:
+            cfg_model = get_config(args.arch)
+        else:
+            cfg_model = get_reduced_config(args.arch, d_model=512)
         task = task_for_config(cfg_model, seq_len=ZOO_SEQ, seed=0, device="cuda")
         cfg = DynaBROConfig(
             mlmc=MLMCConfig(T=args.T, m=M, V=5.0, option=option, kappa=1.0,
@@ -101,6 +111,9 @@ def main():
                     choices=["cwtm", "nnm+cwtm", "krum", "geomed", "mfm"])
     ap.add_argument("--driver", default="round", choices=["round", "scan"])
     ap.add_argument("--attack", default="sign_flip", choices=sorted(ATTACKS))
+    ap.add_argument("--arch", default=ZOO_ARCH,
+                    help="with --task zoo: the model (default smollm-360m, "
+                         "8 of its 32 layers)")
     args = ap.parse_args()
     if args.T is None:
         args.T = 16 if args.task == "zoo" else 150
@@ -148,6 +161,7 @@ def main():
         top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
         print(json.dumps({
             "phase": "profile", "task": args.task,
+            "arch": args.arch if args.task == "zoo" else None,
             "aggregator": args.aggregator,
             "attack": args.attack, "driver": args.driver,
             "microbatch": microbatch, "backend": backend, "T": args.T,

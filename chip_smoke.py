@@ -25,8 +25,9 @@ sources there (``nvcc``, one process per source, all started together, into
      launch takes, and widths of 1 and not a multiple of 4; and every plan
      of ``cw_reduce.cu`` against the default plan's bits; and
      ``tree_cw_reduce`` over the model zoo's 11-leaf gradient tree at
-     SmolLM-360M's widths (17 x 125.8M float32) against the plain version
-     leaf by leaf and bitwise against one launch per leaf;
+     SmolLM-360M's widths (17 x 125.8M float32) and over whisper-base's
+     33-leaf tree (17 x 114.0M, two launches a call) against the plain
+     version leaf by leaf and bitwise against one launch per leaf;
   3. runs one ``pairwise_sqdist`` and one ``cross_sqdist`` call at 17 x 8192
      and at 17 x 10, and one call of each tree form of ``combine.cu`` and of
      ``tree_cw_reduce`` over the main path's four leaves, under
@@ -113,6 +114,17 @@ sources there (``nvcc``, one process per source, all started together, into
      and (e) of ``serve_path``: 4 rounds of that model served from 17
      worker threads, the session sharing the path's scan_fn (no capture),
      bitwise equal to ``Session.run(4)``, with rounds/s and peak memory;
+     then the zoo's other families in the same setting
+     (``zoo_families_path``): whisper-base at its published width and depth
+     (6 + 6 layers, d_model 512, 1500 encoder frames, 113,959,936
+     parameters, flash attention), with two ``cw_reduce`` launches an
+     aggregation, a bitwise rerun, the Mean rule's unattacked held-out loss
+     falling and the plain backend's logs and params; and llama-3.2-vision,
+     qwen2-moe, arctic, rwkv6 and jamba at ``get_reduced_config(arch,
+     d_model=512)`` with their launches (1, 2 or 4 an aggregation), a
+     bitwise rerun and the plain backend, the MoE ones with every round's
+     top-k routing equal in both backends; each prints rounds/s, capture
+     seconds a level, peak memory and the batch schedule's bytes;
  10. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
@@ -120,7 +132,8 @@ sources there (``nvcc``, one process per source, all started together, into
      8 lanes beside one tree call a lane; K5 with its trim on the card), and
      ``cw_reduce`` also at 64 x 8192 and at 17 x 2^20 in float32 and
      bfloat16, and over the zoo's 11-leaf tree beside ``torch.median`` and
-     its 2.70 ms bytes bound;
+     its 2.70 ms bytes bound, and over whisper-base's 33-leaf tree (two
+     launches) beside its 2.449 ms bound;
  11. prints the ``{"kernels": [...]}`` summary (each kernel's launches by
      path, the served and halving paths among them), then
      ``{"ok": true, "device": {...}}`` as the last line.
@@ -161,7 +174,7 @@ from repro_torch import (  # noqa: E402
     run_dynabro_scan, run_matrix, run_momentum, run_momentum_scan,
     save_checkpoint, scenario_grid, sgd, worker_payloads,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.core import robust_train as rt  # noqa: E402
 from repro_torch.data import classification as clf  # noqa: E402
@@ -170,6 +183,8 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import init_params, task_for_config  # noqa: E402
+from repro_torch.models import moe as zoo_moe  # noqa: E402
+from repro_torch.models.transformer import loss_fn as zoo_loss  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, and float32 rate outside the tensor
 # cores (the sort network's min/max and the sums are plain f32 instructions)
@@ -511,32 +526,36 @@ def zoo_config(layers=ZOO_LAYERS):
     return dataclasses.replace(get_config(ZOO_ARCH), n_layers=layers)
 
 
-def zoo_stack(dev, seed):
+def zoo_stack(dev, seed, cfg=None):
     """The zoo's worker stack: one (17, d_l) float32 leaf per leaf of the
-    8-layer model's gradient tree (11 leaves, 125,845,440 columns, the
-    embedding's 47,185,920 the widest), drawn on the card."""
+    gradient tree of ``cfg`` (default: the 8-layer SmolLM-360M, 11 leaves,
+    125,845,440 columns, the embedding's 47,185,920 the widest), drawn on
+    the card."""
     shapes = [(k, v.numel()) for k, v in sorted(
-        init_params(zoo_config(), 0, device="cpu").items())]
+        init_params(cfg or zoo_config(), 0, device="cpu").items())]
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [(k, torch.randn(M, d, generator=gen, device=dev) * 1e-2)
             for k, d in shapes]
 
 
-def check_zoo_tree_kernels(dev):
+def check_zoo_tree_kernels(dev, cfg=None, what="zoo widths"):
     """``tree_cw_reduce`` over the zoo's 11-leaf stack at model widths (17 x
-    125.8M float32, 802M values in the embedding's leaf, 1.97M blocks):
+    125.8M float32, 802M values in the embedding's leaf, 1.97M blocks), or
+    over the tree of ``cfg`` (whisper-base's 33 leaves: two launches):
     against the plain version leaf by leaf (within TOL) and bit for bit
     against one launch per leaf, the trimmed mean with the trim a value and
-    an int32 on the card, and the median; one launch a tree call."""
-    leaves = zoo_stack(dev, 7)
+    an int32 on the card, and the median; one launch a tree call for each
+    ``MAX_LEAVES`` leaves."""
+    leaves = zoo_stack(dev, 7, cfg)
     xs = [x for _, x in leaves]
+    per_call = -(-len(xs) // fused.MAX_LEAVES)
     t_dev = torch.tensor(TRIM, dtype=torch.int32, device=dev)
     worst, n = 0.0, 0
     for mode, trim in (("tm", TRIM), ("tm", t_dev), ("med", 0)):
-        tag = f"zoo tree {mode} trim={int(trim)}"
+        tag = f"{what} tree {mode} trim={int(trim)}"
         before = LAUNCHES["cw_reduce"]
         outs = fused.tree_cw_reduce(xs, mode, trim)
-        assert LAUNCHES["cw_reduce"] == before + 1, tag
+        assert LAUNCHES["cw_reduce"] == before + per_call, tag
         for (name, x), out in zip(leaves, outs):
             assert torch.equal(out, fused.cw_reduce(x, mode, trim)), \
                 f"tree vs leaf {tag} {name}"
@@ -545,8 +564,9 @@ def check_zoo_tree_kernels(dev):
             n += 1
         del outs
     torch.cuda.synchronize()
-    emit({"phase": "kernel_check", "kernel": "tree_cw_reduce (zoo widths)",
+    emit({"phase": "kernel_check", "kernel": f"tree_cw_reduce ({what})",
           "leaves": {name: x.shape[1] for name, x in leaves}, "m": M,
+          "launches_a_call": per_call,
           "columns": sum(x.shape[1] for x in xs), "comparisons": n,
           "max_abs_err": worst, "bitwise_equal_per_leaf_launches": True,
           "tolerance": TOL})
@@ -1723,7 +1743,7 @@ def halving_path(task, grid):
 
 # ------------------------------------------------------------- 9. model zoo
 
-ZOO_TIMED_RUNS = 3  # the kernel path again, graphs kept, for rounds/s
+ZOO_TIMED_RUNS = 2  # the kernel path again, graphs kept, for rounds/s
 ZOO_PLAIN_TOL = 1e-5  # of each leaf's largest |value|
 
 
@@ -1735,130 +1755,19 @@ def zoo_dyn_cfg(backend="auto", attack="sign_flip", aggregator="cwtm"):
 
 def zoo_path(dev):
     """DynaBRO over SmolLM-360M at its published width, 8 of its 32 layers
-    (``zoo_config``), seq_len 128, one sequence a unit, m=17 with 8
-    Byzantine under sign_flip and Periodic(K=4), CWTM at trim 8,
-    ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05), through
+    (``zoo_config``), through ``zoo_run``: seq_len 128, one sequence a
+    unit, m=17 with 8 Byzantine under sign_flip and Periodic(K=4), CWTM at
+    trim 8, ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05),
     ``task_for_config`` and ``run_dynabro_scan(microbatch=True)`` on the
-    kernel backend. Checks, each a hard failure: every round a graph replay
-    under the sync check; exactly one ``cw_reduce`` launch an aggregation
-    and no other kernel; a second run bitwise equal (params, logs,
-    correction norms) with no capture; finite params and held-out loss; the
-    same path with no attack and the Mean rule (``cw_reduce``'s mean mode)
-    ending below the held-out loss at round 0; the plain backend's run with
-    equal logs and params within 1e-5 of each leaf's largest |value|. With
-    CWTM at trim 8 (the coordinate-wise median of 17 single-sequence
-    gradients) the held-out loss rises in these 16 rounds, under sign_flip
-    and without an attack alike (PERF.md), so the fall is held on the
-    Mean rule's unattacked run and CWTM's loss is reported. Prints rounds/s of
-    the kernel path (graphs kept, in runs after the first), each level's
-    warm-up and capture seconds, and the peak memory. Returns the kernel
-    run's launch counts."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = zoo_config()
-    task = task_for_config(cfg, seq_len=ZOO_SEQ, unit_batch=1, seed=0,
-                           device=dev)
-    sampler = task.make_sampler(M)
-    dcfg = zoo_dyn_cfg()
-    j_max = dcfg.mlmc.j_max
-    loss0 = task.objective(task.params0)
-
-    def run(scan_fn, c):
-        scan_fn = scan_fn or make_dynabro_scan_fn(task.grad_fn, c, sgd(0.05),
-                                                  microbatch=True)
-        sw = get_switcher("periodic", M, n_byz=N_BYZ, K=4)
-        return timed(lambda: run_dynabro_scan(
-            task.grad_fn, task.params0, sgd(0.05), c, sw, sampler, ZOO_T,
-            seed=0, scan_fn=scan_fn, microbatch=True))
-
-    scan_fn = make_dynabro_scan_fn(task.grad_fn, dcfg, sgd(0.05),
-                                   microbatch=True)
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
-    with watch_replays() as modes:
-        (p1, l1, _), first_s = run(scan_fn, dcfg)
-    launches = {k: v for k, v in LAUNCHES.items() if v}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
-    dn1 = scan_fn.corr_norms.copy()
-    captures = scan_fn.captures
-    reset_launches()
-    with watch_replays() as modes2:
-        (p2, l2, _), second_s = run(scan_fn, dcfg)
-    launches2 = {k: v for k, v in LAUNCHES.items() if v}
-    bitwise = (all(torch.equal(p1[k], p2[k]) for k in p1)
-               and np.array_equal(dn1, scan_fn.corr_norms))
-    times = [second_s] + [run(scan_fn, dcfg)[1]
-                          for _ in range(ZOO_TIMED_RUNS - 1)]
-    capture_s = {str(j): c for j, c in sorted(scan_fn.capture_seconds.items())}
-    recaptured = scan_fn.captures != captures
-    loss1 = task.objective(p1)
-    finite = all(bool(torch.isfinite(v).all()) for v in p1.values())
-    del p2
-    serve_launches = zoo_serve(task, dcfg, scan_fn)
-    del scan_fn
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    reset_launches()
-    (p_mean, l_mean, _), mean_s = run(
-        None, zoo_dyn_cfg(attack="none", aggregator="mean"))
-    mean_launches = {k: v for k, v in LAUNCHES.items() if v}
-    loss_mean = task.objective(p_mean)
-    del p_mean
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    reset_launches()
-    (p3, l3, _), ref_s = run(None, zoo_dyn_cfg("ref"))
-    ref_launches = {k: v for k, v in LAUNCHES.items() if v}
-    rel = {k: float((p1[k] - p3[k]).abs().max()
-                    / p3[k].abs().max().clamp_min(1e-30)) for k in p1}
-    del p3
-    levels = [l.level for l in l1]
-    expected = sum(3 if 1 <= j <= j_max else 1 for j in levels)
-    row = {"phase": "zoo_path", "arch": ZOO_ARCH, "layers": cfg.n_layers,
-           "of_layers": get_config(ZOO_ARCH).n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "seq_len": ZOO_SEQ, "unit_batch": 1,
-           "T": ZOO_T, "m": M, "n_byz": N_BYZ, "trim": TRIM, "K": 4,
-           "j_max": j_max, "leaves": len(p1),
-           "params": sum(v.numel() for v in p1.values()),
-           "levels": {j: levels.count(j) for j in sorted(set(levels))},
-           "failsafe_ok": sum(l.failsafe_ok for l in l1),
-           "replays": len(modes), "replays_under_sync_error":
-               modes.count(SYNC_DEBUG_ERROR) + modes2.count(SYNC_DEBUG_ERROR),
-           "launches": launches, "second_run_launches": launches2,
-           "expected_cw_reduce": expected, "ref_launches": ref_launches,
-           "rerun_bitwise": bitwise, "recaptured": recaptured,
-           "corr_norms": dn1.tolist(),
-           "loss_round0": loss0, "loss_after_T": loss1,
-           "loss_after_T_mean_no_attack": loss_mean, "mean_run_s": mean_s,
-           "mean_launches": mean_launches,
-           "max_rel_param_diff_vs_plain": max(rel.values()),
-           "plain_limit": ZOO_PLAIN_TOL, "plain_layers": cfg.n_layers,
-           "capture_s": capture_s, "first_run_s": first_s,
-           "run_s": times, "rounds_per_s": [ZOO_T / t for t in times],
-           "plain_run_s": ref_s,
-           "peak_allocated_gb": peak_gb, "peak_reserved_gb": reserved_gb,
-           "device_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
-    emit(row)
-    assert len(modes) == len(modes2) == ZOO_T, (len(modes), len(modes2))
-    assert row["replays_under_sync_error"] == 2 * ZOO_T, row
-    assert launches == launches2 == {"cw_reduce": expected}, row
-    assert not ref_launches, ref_launches
-    assert bitwise and not recaptured, "zoo: the rerun differs or recaptured"
-    assert [vars(l) for l in l1] == [vars(l) for l in l2], "zoo: rerun logs"
-    assert finite and np.isfinite(loss1), (finite, loss1)
-    assert mean_launches == launches, (mean_launches, launches)
-    assert [l.level for l in l_mean] == levels, "zoo, mean: levels"
-    assert np.isfinite(loss_mean) and loss_mean < loss0, \
-        f"zoo, mean, no attack: held-out loss {loss_mean} not below {loss0}"
-    assert [vars(l) for l in l3] == [vars(l) for l in l1], "zoo: plain logs"
-    assert max(rel.values()) <= ZOO_PLAIN_TOL, rel
-    del task, p1
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, serve_launches
+    kernel backend, with one ``cw_reduce`` launch an aggregation, the Mean
+    rule's check and (e) of ``serve_path`` on its scan_fn. With CWTM at
+    trim 8 (the coordinate-wise median of 17 single-sequence gradients)
+    the held-out loss rises in these 16 rounds, under sign_flip and without
+    an attack alike (PERF.md), so the fall is held on the Mean rule's
+    unattacked run and CWTM's loss is reported. Returns the kernel run's
+    launch counts and the served rounds'."""
+    return zoo_run(dev, ZOO_ARCH, zoo_config(), phase="zoo_path",
+                   timed_runs=ZOO_TIMED_RUNS, mean_check=True, serve=True)
 
 
 ZOO_SERVE_T = 4
@@ -1913,6 +1822,246 @@ def zoo_serve(task, dcfg, scan_fn):
     assert snap["updates_accepted"] == M * ZOO_SERVE_T, snap
     del server, sess, p_ref
     return launches
+
+
+# ------------------------------------------------ 9b. the zoo's families
+
+WHISPER = "whisper-base"
+# the five other non-dense architectures, at the reduced form's widest
+REDUCED_ARCHS = ("llama-3.2-vision-90b", "qwen2-moe-a2.7b", "arctic-480b",
+                 "rwkv6-1.6b", "jamba-1.5-large-398b")
+REDUCED_D = 512
+MOE_ARCHS = ("qwen2-moe-a2.7b", "arctic-480b")
+# cw_reduce launches one aggregation of each tree takes (MAX_LEAVES a launch)
+TREE_LAUNCHES = {ZOO_ARCH: 1, WHISPER: 2, "llama-3.2-vision-90b": 2, "qwen2-moe-a2.7b": 1,
+                 "arctic-480b": 1, "rwkv6-1.6b": 1, "jamba-1.5-large-398b": 4}
+WHISPER_TIMED_RUNS = 1  # the rerun alone: 20 s a run at full size
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Keep, for every ``moe._topk_dispatch`` call while the block runs
+    (eager calls only), its top-k expert indices and the least gap over its
+    tokens between the k-th and the (k+1)-th router probability."""
+    calls, orig = [], zoo_moe._topk_dispatch
+
+    def recorded(probs, top_k, capacity):
+        srt = torch.sort(probs.detach(), dim=-1, descending=True, stable=True)
+        gap = srt.values[:, top_k - 1] - srt.values[:, top_k]
+        calls.append((srt.indices[:, :top_k].cpu(), float(gap.min())))
+        return orig(probs, top_k, capacity)
+
+    zoo_moe._topk_dispatch = recorded
+    try:
+        yield calls
+    finally:
+        zoo_moe._topk_dispatch = orig
+
+
+def routing_of_run(task, cfg, sampler, params_by_round, logs, j_max):
+    """Each round's top-k routing: the round's units (its level's count) of
+    every worker through the model at the params the round started from,
+    eagerly on the card. Returns [(indices, least gap)] a round."""
+    out = []
+    for t, (p, log) in enumerate(zip(params_by_round, logs)):
+        n = 2 ** log.level if log.level <= j_max else 1
+        b = sampler(t, n)
+        with torch.no_grad(), record_routing() as calls:
+            for w in range(M):
+                for k in range(n):
+                    zoo_loss(p, {"tokens": b["tokens"][w, k],
+                                 "labels": b["labels"][w, k]}, cfg)
+        out.append((torch.cat([c[0].reshape(-1) for c in calls]),
+                    min(c[1] for c in calls)))
+    return out
+
+
+def schedule_bytes(scan_fn):
+    """Bytes of the level graphs' static batch schedule on the card: all of
+    it, and its ``extra`` (frames or patches)."""
+    batches = scan_fn._graphs.batches
+    extra = batches.get("extra", {})
+    size = sum(v.numel() * v.element_size() for k, v in batches.items()
+               if k != "extra")
+    ext = sum(v.numel() * v.element_size() for v in extra.values())
+    return size + ext, ext
+
+
+def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
+            serve=False):
+    """DynaBRO over the model ``cfg`` (seq_len 128, one sequence a unit,
+    m=17, 8 Byzantine under sign_flip and Periodic(4), CWTM at trim 8,
+    ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05),
+    ``task_for_config`` and ``run_dynabro_scan(microbatch=True)``).
+    Checks, each a hard failure: every round a graph replay under the sync
+    check; exactly ``TREE_LAUNCHES[arch]`` ``cw_reduce`` launches an
+    aggregation and no other kernel; a second run bitwise equal (params,
+    logs, correction norms) with no capture; finite params and held-out
+    loss; the plain backend's run with equal logs and params within 1e-5
+    of each leaf's largest |value|; with ``mean_check``, the Mean rule's
+    unattacked run (``cw_reduce``'s mean mode) ending below the round-0
+    held-out loss; for the MoE archs, every round's top-k routing equal in
+    both backends (recorded eagerly at each round's starting params, read
+    through ``eval_fn`` after every round), a differing round failing with
+    its round and its least gap; with ``serve``, ``zoo_serve`` on the
+    kernel run's scan_fn. Prints, as the ``phase`` row, rounds/s (runs
+    after the first), each level's warm-up and capture seconds, the peak
+    memory and the batch schedule's bytes. Returns the kernel run's launch
+    counts, and with ``serve`` the served rounds' as well."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    task = task_for_config(cfg, seq_len=ZOO_SEQ, unit_batch=1, seed=0,
+                           device=dev)
+    sampler = task.make_sampler(M)
+    dcfg = zoo_dyn_cfg()
+    j_max = dcfg.mlmc.j_max
+    loss0 = task.objective(task.params0)
+    moe = arch in MOE_ARCHS
+
+    def run(scan_fn, c, keep=None):
+        scan_fn = scan_fn or make_dynabro_scan_fn(task.grad_fn, c, sgd(0.05),
+                                                  microbatch=True)
+        sw = get_switcher("periodic", M, n_byz=N_BYZ, K=4)
+        kw = {}
+        if moe:  # every round's params, for its routing
+            kw = dict(eval_every=1, eval_fn=lambda p, t: (
+                keep.append(p) if keep is not None else None))
+        return timed(lambda: run_dynabro_scan(
+            task.grad_fn, task.params0, sgd(0.05), c, sw, sampler, ZOO_T,
+            seed=0, scan_fn=scan_fn, microbatch=True, **kw))
+
+    scan_fn = make_dynabro_scan_fn(task.grad_fn, dcfg, sgd(0.05),
+                                   microbatch=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kept = [task.params0]
+    with watch_replays() as modes:
+        (p1, l1, _), first_s = run(scan_fn, dcfg, kept)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
+    sched_bytes, extra_bytes = schedule_bytes(scan_fn)
+    dn1 = scan_fn.corr_norms.copy()
+    captures = scan_fn.captures
+    reset_launches()
+    with watch_replays() as modes2:
+        (p2, l2, _), second_s = run(scan_fn, dcfg)
+    launches2 = {k: v for k, v in LAUNCHES.items() if v}
+    rerun_bitwise = bitwise(p1, p2) and np.array_equal(dn1, scan_fn.corr_norms)
+    times = [second_s] + [run(scan_fn, dcfg)[1] for _ in range(timed_runs - 1)]
+    capture_s = {str(j): c for j, c in sorted(scan_fn.capture_seconds.items())}
+    recaptured = scan_fn.captures != captures
+    loss1 = task.objective(p1)
+    finite = all(bool(torch.isfinite(v).all()) for v in p1.values())
+    del p2
+    serve_launches = zoo_serve(task, dcfg, scan_fn) if serve else None
+    del scan_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loss_mean = mean_launches = mean_s = None
+    if mean_check:
+        reset_launches()
+        (p_mean, l_mean, _), mean_s = run(
+            None, zoo_dyn_cfg(attack="none", aggregator="mean"))
+        mean_launches = {k: v for k, v in LAUNCHES.items() if v}
+        loss_mean = task.objective(p_mean)
+        assert [l.level for l in l_mean] == [l.level for l in l1], \
+            f"{arch}, mean: levels"
+        del p_mean
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    reset_launches()
+    kept_ref = [task.params0]
+    (p3, l3, _), ref_s = run(None, zoo_dyn_cfg("ref"), kept_ref)
+    ref_launches = {k: v for k, v in LAUNCHES.items() if v}
+    rel = {k: float((p1[k] - p3[k]).abs().max()
+                    / p3[k].abs().max().clamp_min(1e-30)) for k in p1}
+    del p3
+    gc.collect()
+    torch.cuda.empty_cache()
+    routing = None
+    if moe:
+        r1 = routing_of_run(task, cfg, sampler, kept, l1, j_max)
+        r3 = routing_of_run(task, cfg, sampler, kept_ref, l1, j_max)
+        flips = [{"round": t, "least_gap": a[1], "least_gap_plain": b[1]}
+                 for t, (a, b) in enumerate(zip(r1, r3))
+                 if not torch.equal(a[0], b[0])]
+        routing = {"rounds": len(r1), "choices": sum(a[0].numel() for a in r1),
+                   "least_gap": min(a[1] for a in r1), "flips": flips}
+    del kept, kept_ref
+    levels = [l.level for l in l1]
+    per_tree = TREE_LAUNCHES[arch]
+    assert per_tree == -(-len(p1) // fused.MAX_LEAVES), (arch, len(p1))
+    expected = per_tree * sum(3 if 1 <= j <= j_max else 1 for j in levels)
+    row = {"phase": phase, "arch": arch, "family": cfg.family,
+           "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+           "encoder_layers": cfg.n_encoder_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "encoder_seq": cfg.encoder_seq,
+           "n_image_tokens": cfg.n_image_tokens, "attn_impl": cfg.attn_impl,
+           "seq_len": ZOO_SEQ, "unit_batch": 1, "T": ZOO_T, "m": M,
+           "n_byz": N_BYZ, "trim": TRIM, "K": 4, "j_max": j_max,
+           "leaves": len(p1), "params": sum(v.numel() for v in p1.values()),
+           "cw_reduce_launches_a_tree": per_tree,
+           "levels": {j: levels.count(j) for j in sorted(set(levels))},
+           "failsafe_ok": sum(l.failsafe_ok for l in l1),
+           "replays": len(modes), "replays_under_sync_error":
+               modes.count(SYNC_DEBUG_ERROR) + modes2.count(SYNC_DEBUG_ERROR),
+           "launches": launches, "second_run_launches": launches2,
+           "expected_cw_reduce": expected, "ref_launches": ref_launches,
+           "rerun_bitwise": rerun_bitwise, "recaptured": recaptured,
+           "corr_norms": dn1.tolist(),
+           "loss_round0": loss0, "loss_after_T": loss1,
+           "loss_after_T_mean_no_attack": loss_mean, "mean_run_s": mean_s,
+           "mean_launches": mean_launches,
+           "max_rel_param_diff_vs_plain": max(rel.values()),
+           "plain_limit": ZOO_PLAIN_TOL, "routing": routing,
+           "capture_s": capture_s, "first_run_s": first_s, "run_s": times,
+           "rounds_per_s": [ZOO_T / t for t in times], "plain_run_s": ref_s,
+           "plain_rounds_per_s": ZOO_T / ref_s,
+           "schedule_bytes": sched_bytes, "schedule_extra_bytes": extra_bytes,
+           "peak_allocated_gb": peak_gb, "peak_reserved_gb": reserved_gb,
+           "device_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
+    emit(row)
+    assert len(modes) == len(modes2) == ZOO_T, (arch, len(modes), len(modes2))
+    assert row["replays_under_sync_error"] == 2 * ZOO_T, row
+    assert launches == launches2 == {"cw_reduce": expected}, row
+    assert not ref_launches, ref_launches
+    assert rerun_bitwise and not recaptured, f"{arch}: rerun differs or recaptured"
+    assert [vars(l) for l in l1] == [vars(l) for l in l2], f"{arch}: rerun logs"
+    assert finite and np.isfinite(loss1), (arch, finite, loss1)
+    if mean_check:
+        assert mean_launches == launches, (mean_launches, launches)
+        assert np.isfinite(loss_mean) and loss_mean < loss0, \
+            f"{arch}, mean, no attack: held-out loss {loss_mean} not below {loss0}"
+    assert [vars(l) for l in l3] == [vars(l) for l in l1], f"{arch}: plain logs"
+    assert max(rel.values()) <= ZOO_PLAIN_TOL, (arch, rel)
+    assert routing is None or not routing["flips"], (arch, routing["flips"])
+    del task, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (launches, serve_launches) if serve else launches
+
+
+def zoo_families_path(dev):
+    """(a) whisper-base at its published width and depth
+    (``get_config``: 6 encoder and 6 decoder layers, d_model 512, 8 heads,
+    d_ff 2048, vocab 51865, 1500 encoder frames, untied embeddings; 33
+    leaves, two ``cw_reduce`` launches an aggregation), with the Mean
+    rule's check; (b) the five other non-dense architectures at
+    ``get_reduced_config(arch, d_model=512)``, the MoE ones with their
+    routing held; each through ``zoo_run``. Returns each path's kernel
+    launches."""
+    phase = "zoo_families_path"
+    out = {f"zoo {WHISPER}": zoo_run(
+        dev, WHISPER, get_config(WHISPER), phase=phase,
+        timed_runs=WHISPER_TIMED_RUNS, mean_check=True)}
+    for arch in REDUCED_ARCHS:
+        cfg = get_reduced_config(arch, d_model=REDUCED_D)
+        out[f"zoo {arch}"] = zoo_run(dev, arch, cfg, phase=phase)
+    return out
 
 
 # ------------------------------------------------------------- 10. timing
@@ -2054,13 +2203,15 @@ def timing(dev):
     return rows
 
 
-def zoo_tree_timing(dev):
+def zoo_tree_timing(dev, cfg=None, case="tm zoo tree"):
     """``cw_reduce`` over the zoo's 11-leaf stack (17 x 125.8M float32,
-    trim 8, one launch) beside its plain version (``cwtm_ref`` per leaf),
-    ``torch.median(x, 0)`` per leaf (the same function at trim 8 of 17) and
-    its bytes bound: device µs by graph replay, the median of five replays
-    of 10 calls (2 for the plain and library calls, 0.1-1 s each)."""
-    leaves = zoo_stack(dev, 8)
+    trim 8, one launch), or over the tree of ``cfg`` (whisper-base: 33
+    leaves, 17 x 113,959,936, two launches), beside its plain version
+    (``cwtm_ref`` per leaf), ``torch.median(x, 0)`` per leaf (the same
+    function at trim 8 of 17) and its bytes bound: device µs by graph
+    replay, the median of five replays of 10 calls (2 for the plain and
+    library calls, 0.1-1 s each); the launches of one call."""
+    leaves = zoo_stack(dev, 8, cfg)
     xs = [x for _, x in leaves]
     widths = [x.shape[1] for x in xs]
     b_us, b_by = bound_from(sum(M * d * 4 + 4 * d for d in widths),
@@ -2075,8 +2226,12 @@ def zoo_tree_timing(dev):
     def library():
         return [torch.median(x, 0).values for x in xs]
 
-    row = {"phase": "timing", "kernel": "cw_reduce", "case": "tm zoo tree",
-           "m": M, "d": sum(widths), "leaves": len(xs), "dtype": "float32",
+    before = LAUNCHES["cw_reduce"]
+    kern()
+    launches = LAUNCHES["cw_reduce"] - before
+    row = {"phase": "timing", "kernel": "cw_reduce", "case": case,
+           "m": M, "d": sum(widths), "leaves": len(xs), "launches": launches,
+           "dtype": "float32",
            "trim": TRIM, "max_abs_err": max_abs_err(flat(kern()), flat(plain())),
            "kernel_us": time_graph_us(kern, iters=10),
            "plain_us": time_graph_us(plain, iters=2),
@@ -2286,6 +2441,8 @@ def main():
           "bitwise_equal_every_plan": True, "tolerance": TOL})
 
     zoo_worst = check_zoo_tree_kernels(dev)
+    whisper_worst = check_zoo_tree_kernels(dev, get_config(WHISPER),
+                                           "whisper-base widths")
 
     device_kernels_per_call(dev)
     check_device_trim(dev)
@@ -2308,12 +2465,14 @@ def main():
     for grid in ("grid1", "grid2"):
         by_path[f"halving {grid}"] = halving_path(task, grid)
     by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
+    by_path.update(zoo_families_path(dev))
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"
     rows = timing(dev)
     geo_rows = geometry_timing(dev)
     zoo_row = zoo_tree_timing(dev)
+    whisper_row = zoo_tree_timing(dev, get_config(WHISPER), "tm whisper tree")
 
     def launches_of(kernel):
         return {path: c[kernel] for path, c in by_path.items() if c.get(kernel)}
@@ -2324,7 +2483,8 @@ def main():
         "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
         "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
         max([worst, cw_tree_worst, lane_worst, zoo_worst,
-             zoo_row["max_abs_err"]]
+             zoo_row["max_abs_err"], whisper_worst,
+             whisper_row["max_abs_err"]]
             + [r["max_abs_err"] for r in rows.values()]),
         tree_row, tree_row, "torch.median(x, 0) per leaf",
         shape=[[m, d] for m, d in LEAF_SHAPES], case="tm tree", trim=TRIM,
@@ -2336,7 +2496,13 @@ def main():
         zoo_tree_bound_ms=zoo_row["bound_us"] / 1e3,
         zoo_tree_plain_ms=zoo_row["plain_us"] / 1e3,
         zoo_tree_library_ms=zoo_row["library_us"] / 1e3,
-        zoo_tree_columns=zoo_row["d"])]
+        zoo_tree_columns=zoo_row["d"],
+        whisper_tree_ms=whisper_row["kernel_us"] / 1e3,
+        whisper_tree_launches=whisper_row["launches"],
+        whisper_tree_bound_ms=whisper_row["bound_us"] / 1e3,
+        whisper_tree_plain_ms=whisper_row["plain_us"] / 1e3,
+        whisper_tree_library_ms=whisper_row["library_us"] / 1e3,
+        whisper_tree_columns=whisper_row["d"])]
     for name, case, replaces, path, library in [
             ("pairwise_sqdist", "k=m", "src/repro/kernels/fused.py:266",
              "nnm+cwtm", "torch.cdist(x, x).square_()"),

@@ -191,6 +191,11 @@ class Krum(GeometryRule):
     def _k(self, m: int) -> int:
         return max(m - count_ceil(self.delta * m) - 2, 1)
 
+    def scores(self, d2: torch.Tensor) -> torch.Tensor:
+        """(m,) Krum scores of the (m, m) squared distances ``d2``: each
+        worker's sum over its k nearest (self excluded)."""
+        return _krum_scores(d2, self._k(d2.shape[0]))
+
     def _weights(self, d2):
         return _krum_weights(d2, self._k(d2.shape[0]), self.multi)
 
@@ -249,6 +254,10 @@ class MFM(GeometryRule):
     def __init__(self, tau: Optional[float] = None, backend: str = "auto"):
         super().__init__(backend)
         self.tau = tau
+
+    def __call__(self, x: torch.Tensor, tau: Optional[float] = None):
+        """MFM of the rows of one (m, ...) stack, in float32."""
+        return self.tree({"x": x.to(torch.float32)}, tau)["x"]
 
     def tree(self, stacked, tau: Optional[float] = None):
         tau = tau if tau is not None else self.tau

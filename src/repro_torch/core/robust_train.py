@@ -351,15 +351,30 @@ def _pad_units(tree, n_max: int, axis: int):
 
 
 def _batch_schedule(sample_batches, tn, n_max: int, vectorize: bool = True):
-    """Stack a segment's batches into an (L, m, n_max, ...) padded schedule:
+    """Stack a segment's batches into an (L, m, n_max, ...) padded schedule
+    (a nested dict, such as the zoo's ``extra``, keeps its structure):
     ``tn`` is the segment's [(t, n_t), ...], and each round calls
     ``sample_batches(t, n_t)`` once, in round order, at the per-round
     driver's batch size (the sampler's output may depend on n, so padding
-    follows sampling). ``vectorize`` is taken for the JAX package's
-    signature and changes nothing: the port's samplers draw on the host,
-    one call a round."""
-    rows = [_pad_units(sample_batches(t, int(n)), n_max, axis=1) for t, n in tn]
-    return tree_map(lambda *ls: torch.stack(ls), *rows)
+    follows sampling). Each round is written straight into its row of the
+    schedule, padded as ``_pad_units`` pads (the first unit repeated), so
+    no second copy of the segment is held. ``vectorize`` is taken for the
+    JAX package's signature and changes nothing: the port's samplers are
+    called one round at a time."""
+    out = None
+    for i, (t, n) in enumerate(tn):
+        row = sample_batches(t, int(n))
+        if out is None:
+            out = tree_map(lambda l: l.new_empty(
+                (len(tn), l.shape[0], n_max) + tuple(l.shape[2:])), row)
+
+        def fill(dst, src):
+            k = src.shape[1]
+            dst[i, :, :k].copy_(src)
+            dst[i, :, k:].copy_(src[:, :1].expand_as(dst[i, :, k:]))
+        tree_map(fill, out, row)
+        del row
+    return out
 
 
 def _level_plan(cfg: DynaBROConfig, rng: np.random.Generator, T: int):
@@ -718,6 +733,11 @@ class ScanFn:
         seg = batches(start, bounds[0])
         with torch.cuda.device(masks_dev.device):
             g = self._level_graphs(carry, seg, masks_dev, gens, L, T, lane)
+            # the first segment goes into the graphs' own buffers before the
+            # captures, so its schedule is not held twice while they run
+            tree_map(lambda dst, src: dst[:bounds[0] - start].copy_(src),
+                     g.batches, seg)
+            seg = None
             new = sorted({int(k) for k in keys[start:bounds[-1]]}
                          - set(g.graphs))
             g.capture(new)
@@ -733,8 +753,8 @@ class ScanFn:
             oks, evals, a = [], [], start
             for b in bounds:
                 if a > start:
-                    seg = batches(a, b)
-                tree_map(lambda dst, src: dst[:b - a].copy_(src), g.batches, seg)
+                    tree_map(lambda dst, src: dst[:b - a].copy_(src),
+                             g.batches, batches(a, b))
                 g.sidx.zero_()
                 g.replay([int(k) for k in keys[a:b]])
                 if self.flags:

@@ -65,29 +65,33 @@ def clf_loss(params, batch):
 
 
 def make_index_sampler(m: int, unit_batch: int = 32, seed: int = 0,
-                       device="cuda"):
-    """``sampler(t, k) -> (m, k, unit_batch)`` int64 training indices on
-    ``device``, drawn from a CPU ``torch.Generator`` seeded per (seed, t), so
-    a round's batch is the same on every device. Not stream-equal to the JAX
-    package's threefry sampler: tests hand both packages the JAX indices."""
+                       n_train: int = N_TRAIN, device="cuda"):
+    """``sampler(t, k) -> (m, k, unit_batch)`` int64 training indices in
+    [0, n_train) on ``device``, drawn from a CPU ``torch.Generator`` seeded
+    per (seed, t), so a round's batch is the same on every device. Not
+    stream-equal to the JAX package's threefry sampler: tests hand both
+    packages the JAX indices."""
     dev = resolve_device(device)
 
     def sampler(t, k):
         g = torch.Generator().manual_seed((seed + 17) * 1_000_003 + t)
-        idx = torch.randint(0, N_TRAIN, (m, k, unit_batch), generator=g)
+        idx = torch.randint(0, n_train, (m, k, unit_batch), generator=g)
         return idx.to(dev)
 
     return sampler
 
 
-def make_task(m: int, unit_batch: int = 32, seed: int = 0, device="cuda"):
+def make_task(m: int, unit_batch: int = 32, seed: int = 0, noise: float = 1.0,
+              device="cuda"):
     """Returns (params0, grad_fn, sampler, eval_fn), all on ``device``.
 
     ``grad_fn(params, idx)`` is the gradient of the mean loss over the unit
     batch ``Xtr[idx]``; ``eval_fn(params, t)`` returns ``{"test_acc": ...}``
-    on the 4000 held-out points."""
+    on the 4000 held-out points. ``noise`` is the mixture's noise scale
+    (``gaussian_mixture_dataset``)."""
     dev = resolve_device(device)
-    X, y = gaussian_mixture_dataset(N_CLASSES, DIM, N_TRAIN + 4000, seed=seed)
+    X, y = gaussian_mixture_dataset(N_CLASSES, DIM, N_TRAIN + 4000, seed=seed,
+                                    noise=noise)
     Xtr = torch.from_numpy(X[:N_TRAIN]).to(dev)
     ytr = torch.from_numpy(y[:N_TRAIN]).long().to(dev)
     Xte = torch.from_numpy(X[N_TRAIN:]).to(dev)

@@ -25,12 +25,16 @@ from repro_torch.device import resolve_device
 COPY_P = 0.3  # the share of positions that repeat the previous base token
 
 
-def _generator(*key: int) -> torch.Generator:
-    """A CPU generator seeded from the key's hash (``np.random.SeedSequence``),
-    so that keys of different lengths or entries give unrelated streams."""
+def key_seed(*key: int) -> int:
+    """A 64-bit seed from the key's hash (``np.random.SeedSequence``), so
+    that keys of different lengths or entries give unrelated streams."""
     entropy = [int(k) % 2 ** 64 for k in key]
-    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(seed))
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
+
+
+def _generator(*key: int) -> torch.Generator:
+    """A CPU generator seeded from ``key_seed(*key)``."""
+    return torch.Generator().manual_seed(key_seed(*key))
 
 
 @dataclasses.dataclass

@@ -1,11 +1,13 @@
-"""Primitive layers: norms, RoPE, chunked (online-softmax) attention, MLPs;
-the port of the JAX package's ``models/layers.py``, function for function.
+"""Primitive layers: norms (and RWKV's per-head groupnorm), RoPE, chunked
+(online-softmax) attention, MLPs; the port of the JAX package's
+``models/layers.py``, function for function.
 
 Attention is the JAX package's online-softmax loop over KV chunks (and over
 query chunks), written as Python loops over plain tensor code: no library
 attention kernel, whose backward is not guaranteed deterministic. Products
 take float32 operands, as JAX's ``preferred_element_type=float32`` sums in
-float32. ``decode_attention`` comes with serving (ROADMAP.md queue 1).
+float32. ``decode_attention`` comes with the decode entry points (``prefill``,
+``decode_step``; ROADMAP.md queue 1, "The model zoo").
 """
 from __future__ import annotations
 
@@ -39,6 +41,17 @@ def apply_norm(x, p, kind: str):
     if kind == "layernorm":
         return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Per-head groupnorm of the RWKV time-mix output. x: (..., H, hd),
+    scale: (H, hd)."""
+    dtype = x.dtype
+    x = x.to(F32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale).to(dtype)
 
 
 # ---------------------------------------------------------------- RoPE

@@ -1,0 +1,183 @@
+"""State-space mixers: Mamba (S6 selective scan) and RWKV-6 (Finch) time-mix
+and channel-mix; the port of the JAX package's ``models/ssm.py`` in train
+mode (``cache=None``).
+
+Mamba's selective scan runs over sequence chunks carrying the SSM state,
+with a log-depth (Hillis-Steele) prefix scan inside each chunk. The JAX
+package's ``associative_scan`` pairs the elements in another tree, so the
+two agree to float32 rounding, not bitwise. The causal convolution is k
+shifted multiply-adds, not ``F.conv1d``: a card's convolution backward is
+not bitwise on rerun unless deterministic mode is forced, and the compiled
+driver's contract is bitwise reruns. RWKV's wkv recurrence is sequential
+over the sequence, as in the JAX package. The decode step
+(``selective_step``, every mixer's ``cache`` branch) comes with the decode
+entry points (ROADMAP.md queue 1, "The model zoo").
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import group_norm_heads
+
+F32 = torch.float32
+
+
+def _decode_unported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
+        "'The model zoo': the decode entry points)")
+
+
+# ================================================================ Mamba
+
+
+def _ssm_combine(e1, e2):
+    """Compose two steps h -> a·h + b, ``e1`` the earlier."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _prefix_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of ``_ssm_combine`` along axis 1, log-depth: after the
+    step at offset o each element holds the composition of the 2o steps
+    ending at it (fewer at the start)."""
+    L = a.shape[1]
+    off = 1
+    while off < L:
+        a_prev, b_prev = a[:, :-off], b[:, :-off]
+        a_cur, b_cur = a[:, off:], b[:, off:]
+        na, nb = _ssm_combine((a_prev, b_prev), (a_cur, b_cur))
+        a = torch.cat([a[:, :off], na], dim=1)
+        b = torch.cat([b[:, :off], nb], dim=1)
+        off *= 2
+    return a, b
+
+
+def selective_scan(x, delta, A, B, C, D, h0=None, chunk: int = 256):
+    """h_t = exp(dt*A) h_{t-1} + dt*B_t*x_t ; y_t = C_t . h_t + D*x_t.
+
+    x, delta: (Bt, L, di); A: (di, ds); B, C: (Bt, L, ds); D: (di,).
+    Returns (y (Bt,L,di), h_last (Bt,di,ds))."""
+    Bt, L, di = x.shape
+    ds = A.shape[1]
+    chunk = min(chunk, L)
+    h = (torch.zeros((Bt, di, ds), dtype=F32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, L, chunk):
+        xc, dt, Bc, Cc = (t[:, c0:c0 + chunk].to(F32) for t in (x, delta, B, C))
+        a = torch.exp(dt[..., None] * A[None, None])  # (Bt, c, di, ds)
+        b = (dt * xc)[..., None] * Bc[:, :, None, :]
+        ca, cb = _prefix_scan(a, b)
+        h_all = ca * h[:, None] + cb  # (Bt, c, di, ds)
+        ys.append((torch.einsum("bcds,bcs->bcd", h_all, Cc)
+                   + D[None, None] * xc).to(x.dtype))
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (Bt, L, di), w: (k, di) -> (Bt, L, di):
+    out[t] = sum_i w[i]·x[t - (k-1) + i], the earlier taps first."""
+    k, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:L] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + L] * w[i]
+    return out + b
+
+
+def mamba_mixer(x, p, cfg, cache=None, pos=None):
+    """Mamba block. x: (Bt, L, D). Returns (y, the prefill cache: conv (Bt,
+    k-1, di), the last k-1 raw conv inputs, and ssm (Bt, di, ds), the final
+    state)."""
+    if cache is not None:
+        _decode_unported("mamba_mixer(cache=)")
+    ds = cfg.mamba_d_state
+    xz = x @ p["in_proj"]  # (Bt, L, 2*di)
+    xi_raw, z = torch.chunk(xz, 2, dim=-1)
+    A = -torch.exp(p["A_log"].to(F32))  # (di, ds)
+    xi = F.silu(_causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
+    dbc = xi @ p["x_proj"]  # (Bt, L, dt_rank + 2*ds)
+    dt_rank = p["dt_proj"].shape[0]
+    dt, Bssm, Cssm = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
+    delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    y, h_last = selective_scan(xi, delta, A, Bssm, Cssm, p["D"])
+    k = p["conv_w"].shape[0]
+    tail = xi_raw[:, -(k - 1):]
+    if tail.shape[1] < k - 1:
+        tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+    y = y * F.silu(z)
+    return y @ p["out_proj"], {"conv": tail, "ssm": h_last}
+
+
+# ================================================================ RWKV-6
+
+
+def _rwkv_decay(xw, p):
+    """Data-dependent per-channel decay: w = exp(-exp(w0 + tanh(x@w1)@w2))."""
+    lora = torch.tanh(xw.to(F32) @ p["w1"]) @ p["w2"]
+    return torch.exp(-torch.exp(p["w0"] + lora))  # (..., D) in (0,1)
+
+
+def _rwkv_wkv_scan(r, k, v, w, u, s0):
+    """Sequential wkv. r/k/v/w: (Bt, L, H, hd); u: (H, hd); s0: (Bt, H, hd, hd).
+
+    S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+    y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)"""
+    S, ys = s0, []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]  # (Bt, H, hd)
+        kv = kt[..., :, None] * vt[..., None, :]  # (Bt, H, hd, hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt,
+                               S + u[None, :, :, None] * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(ys, dim=1), S  # (Bt, L, H, hd)
+
+
+def _shift(x):
+    """The previous position's x, zeros at the first. x: (Bt, L, D)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv_time_mix(x, p, cfg, cache=None):
+    """RWKV-6 time mixing. x: (Bt, L, D) post-norm input. Returns (y, the
+    prefill cache: prev (Bt, D), state (Bt, H, hd, hd))."""
+    if cache is not None:
+        _decode_unported("rwkv_time_mix(cache=)")
+    Bt, L, Dm = x.shape
+    hd = cfg.rwkv_head_dim
+    H = Dm // hd
+    s0 = torch.zeros((Bt, H, hd, hd), dtype=F32, device=x.device)
+    d = _shift(x) - x
+    xr = x + d * p["mu_r"]
+    xk = x + d * p["mu_k"]
+    xv = x + d * p["mu_v"]
+    xw = x + d * p["mu_w"]
+    xg = x + d * p["mu_g"]
+    r = (xr @ p["wr"]).reshape(Bt, L, H, hd)
+    k = (xk @ p["wk"]).reshape(Bt, L, H, hd)
+    v = (xv @ p["wv"]).reshape(Bt, L, H, hd)
+    g = F.silu(xg @ p["wg"])
+    w = _rwkv_decay(xw, p).reshape(Bt, L, H, hd)
+    u = p["u"].reshape(H, hd)
+    rf, kf, vf, wf = (t.to(F32) for t in (r, k, v, w))
+    y, S = _rwkv_wkv_scan(rf, kf, vf, wf, u, s0)
+    y = group_norm_heads(y, p["ln_x"].reshape(H, hd)).reshape(Bt, L, Dm)
+    y = (y.to(x.dtype) * g) @ p["wo"]
+    return y, {"prev": x[:, -1], "state": S}
+
+
+def rwkv_channel_mix(x, p, cache=None):
+    """RWKV channel mix. x: (Bt, L, D). Returns (out, the prefill cache:
+    prev (Bt, D))."""
+    if cache is not None:
+        _decode_unported("rwkv_channel_mix(cache=)")
+    d = _shift(x) - x
+    xk = x + d * p["mu_k"]
+    xr = x + d * p["mu_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return out, {"prev": x[:, -1]}

@@ -1,7 +1,7 @@
 """Optimizers over parameter dicts."""
 from repro_torch.optim.optimizers import (
-    Optimizer, adagrad_norm, adam, apply_updates, momentum, sgd,
+    Optimizer, adagrad_norm, adam, apply_updates, get_optimizer, momentum, sgd,
 )
 
-__all__ = ["Optimizer", "adagrad_norm", "adam", "apply_updates", "momentum",
-           "sgd"]
+__all__ = ["Optimizer", "adagrad_norm", "adam", "apply_updates",
+           "get_optimizer", "momentum", "sgd"]

@@ -97,3 +97,11 @@ def adagrad_norm(eta0: float) -> Optimizer:
 
     return Optimizer(init, update, "adagrad_norm")
 
+
+
+def get_optimizer(name: str, lr: float, **kw) -> Optimizer:
+    """The optimizer registered as ``name`` (``sgd``, ``momentum``, ``adam``
+    or ``adagrad_norm``) at learning rate ``lr``; ``kw`` its other
+    hyperparameters. An unknown name raises ``KeyError``."""
+    return {"sgd": sgd, "momentum": momentum, "adam": adam,
+            "adagrad_norm": adagrad_norm}[name](lr, **kw)

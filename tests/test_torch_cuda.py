@@ -1399,3 +1399,116 @@ def test_zoo_streamed_graphs_on_card(cuda_device):
             want = other[0][k].to(cuda_device)
             scale = float(want.abs().max().clamp_min(1e-30))
             assert float((p1[k] - want).abs().max()) <= lim * scale, (k, lim)
+
+
+# ------------------------------------------------- the zoo's families on the card
+
+
+@pytest.fixture
+def ieee_f32(cuda_device):
+    """Float32 products without TF32, as the compiled driver runs them."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_flash_attention_vmap_grad_replays_bitwise(ieee_f32):
+    """``flash_attention`` under ``vmap(grad)`` over 17 workers, windowed
+    GQA with the keys padded over two chunks, captured in a CUDA graph:
+    each replay is bit for bit the eager call, and two replays agree."""
+    from repro_torch.models.flash import flash_attention
+    dev = ieee_f32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(17, 1, 150, 4, 16, generator=gen, device=dev)
+    k = torch.randn(17, 1, 150, 2, 16, generator=gen, device=dev)
+    v = torch.randn(17, 1, 150, 2, 16, generator=gen, device=dev)
+    w = torch.randn(1, 150, 4, 16, generator=gen, device=dev)
+
+    def loss(q, k, v):
+        return torch.sum(flash_attention(q, k, v, True, 40, 0, 96) * w)
+
+    fn = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))
+    eager = fn(q, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(q, k, v)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in out])
+    for a, b, c in zip(eager, *replays):
+        assert torch.equal(a, b) and torch.equal(b, c)
+        assert bool(torch.isfinite(a).all())
+
+
+def test_moe_ffn_and_causal_conv_bitwise_on_rerun(ieee_f32):
+    """``moe_ffn`` (with drops and token groups) and Mamba's causal
+    convolution, forward and gradient, twice on the card: the same bits."""
+    from repro_torch.models import moe, ssm
+    dev = ieee_f32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    D, Fd, E = 64, 128, 4
+    p = {"router": torch.randn(D, E, generator=gen, device=dev),
+         "we1": torch.randn(E, D, Fd, generator=gen, device=dev) / 8,
+         "we2": torch.randn(E, Fd, D, generator=gen, device=dev) / 11,
+         "we3": torch.randn(E, D, Fd, generator=gen, device=dev) / 8}
+    x = torch.randn(2, 128, D, generator=gen, device=dev)
+
+    def moe_loss(p, x):
+        out, aux = moe.moe_ffn(x, p, top_k=2, capacity_factor=0.5,
+                               token_group=64)
+        return out.square().sum() + aux
+
+    cx = torch.randn(2, 128, 256, generator=gen, device=dev)
+    cw = torch.randn(4, 256, generator=gen, device=dev)
+    cb = torch.randn(256, generator=gen, device=dev)
+
+    def conv_loss(x, w, b):
+        return ssm._causal_conv(x, w, b).square().sum()
+
+    for fn, args in ((moe_loss, (p, x)), (conv_loss, (cx, cw, cb))):
+        grad = torch.func.grad(fn, argnums=tuple(range(len(args))))
+        a, b = grad(*args), grad(*args)
+        for ga, gb in zip(torch.utils._pytree.tree_leaves(a),
+                          torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(ga, gb)
+        assert torch.equal(fn(*args), fn(*args))
+
+
+def test_whisper_full_width_unit_against_cpu(ieee_f32):
+    """whisper-base at its published width and depth (113,959,936
+    parameters, 1500 encoder frames): one unit's loss and gradient on the
+    card against the plain CPU path, at ``tests/test_torch_models.py``'s
+    MODEL_TOL (rtol 1e-4, atol 1e-6 times the larger of 1 and the leaf's
+    largest |value|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import loss_fn
+    dev = ieee_f32
+    cfg = get_config("whisper-base")
+    params = init_params(cfg, 0, device="cpu")
+    assert sum(v.numel() for v in params.values()) == 113_959_936
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1),
+             "extra": {"frames": torch.randn(1, 1500, 512, generator=gen)}}
+
+    def value_and_grad(p, b):
+        return torch.func.grad_and_value(lambda q: loss_fn(q, b, cfg))(p)
+
+    g_cpu, l_cpu = value_and_grad(params, batch)
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(dev), batch)
+    g_dev, l_dev = value_and_grad({k: v.to(dev) for k, v in params.items()},
+                                  on_card)
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=1e-4, atol=1e-6)
+    for k in g_cpu:
+        scale = max(1.0, float(g_cpu[k].abs().max()))
+        torch.testing.assert_close(g_dev[k].cpu(), g_cpu[k], rtol=1e-4,
+                                   atol=1e-6 * scale, msg=k)

@@ -1,5 +1,7 @@
 """The port's model zoo layers and dense transformer (``repro_torch.models``)
-against the JAX package's ``repro.models``, on the CPU, at small sizes.
+against the JAX package's ``repro.models``, on the CPU, at small sizes; the
+other families' forward pass in brief (``tests/test_torch_families.py``
+holds them in full).
 
 Both packages get the same numpy inputs; the JAX weights come across through
 ``convert.zoo_params_from_numpy``. Tolerances, float32 throughout:
@@ -33,7 +35,7 @@ LAYER_TOL = dict(rtol=1e-5, atol=1e-6)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-6)
 DENSE = [a for a in j_configs.ARCH_IDS
          if j_configs.get_config(a).family == "dense"] + ["dynabro-mlp"]
-UNPORTED = [a for a in j_configs.ARCH_IDS
+UNPORTED = [a for a in j_configs.ARCH_IDS  # the non-dense families
             if j_configs.get_config(a).family != "dense"]
 
 
@@ -284,29 +286,65 @@ def test_loss_vmapped_over_workers_matches_one_at_a_time():
             _close(batched[k][w], one[k], LAYER_TOL, k)
 
 
-# ------------------------------------------------------------- what waits
+# ------------------------------------------------------------- the families
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_raise(arch):
+    """Each non-dense family (they raised ``NotImplementedError`` before the
+    port had them; the name is kept) now runs through ``init_params`` and
+    ``make_zoo_task`` and matches JAX: its reduced model's logits and router
+    aux on the JAX weights, within ``MODEL_TOL``'s scaled atol (3e-6 of the
+    logits for the two scans, rwkv6 and jamba: ``tests/test_torch_
+    families.py``'s ``SCAN_MODEL_TOL``), and one unit's gradient of its
+    zoo task is finite over every leaf."""
     cfg = t_configs.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        t_models.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        t_models.make_zoo_task(arch, device="cpu")
+    assert sorted(t_models.init_params(cfg, 0, device="cpu")) == sorted(
+        _flat_jax(jax.eval_shape(lambda k: j_tf.init_params(
+            j_configs.get_reduced_config(arch), k), jax.random.PRNGKey(0))))
+    task, _ = t_models.make_zoo_task(arch, seq_len=8, device="cpu")
+    b = {k: (v[0, 0] if isinstance(v, torch.Tensor) else
+             {e: x[0, 0] for e, x in v.items()})
+         for k, v in task.make_sampler(2)(0, 1).items()}
+    g = task.grad_fn(task.params0, b)
+    assert sorted(g) == sorted(task.params0)
+    assert all(bool(torch.isfinite(v).all()) for v in g.values())
+    jcfg, tcfg, jp, tp, batch = _model_inputs(arch)
+    extra = None
+    if jcfg.family == "audio":
+        extra = {"frames": _normal(7, (2, jcfg.encoder_seq, 64))}
+    elif jcfg.family == "vlm":
+        extra = {"patches": _normal(7, (2, jcfg.n_image_tokens, 64))}
+    want, j_aux = j_tf.forward(jp, batch["tokens"], jcfg, extra=extra)
+    got, aux = t_tf.forward(tp, _t(batch["tokens"]), tcfg, extra=None if extra
+                            is None else {k: _t(v) for k, v in extra.items()})
+    scale = max(1.0, float(np.abs(np.asarray(want)).max()))
+    atol = 3e-6 if jcfg.family in ("ssm", "hybrid") else MODEL_TOL["atol"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=MODEL_TOL["rtol"], atol=atol * scale)
+    _close(aux, j_aux, LAYER_TOL)
 
 
 @pytest.mark.parametrize("entry", ["prefill", "decode_step", "init_cache",
                                    "forward_prefill", "forward_extra"])
 def test_serving_entry_points_raise(entry):
+    """The decode entry points raise, naming "The model zoo". The
+    ``forward_extra`` case (it raised before the families were ported; the
+    id is kept): a dense forward ignores ``extra``, as the JAX package's
+    does."""
     _, tcfg, _, tp, batch = _model_inputs("smollm-360m")
     toks = _t(batch["tokens"])
+    if entry == "forward_extra":
+        plain = t_models.forward(tp, toks, tcfg)
+        for extra in ({}, {"frames": torch.ones(2, 3, 64)}):
+            got = t_models.forward(tp, toks, tcfg, extra=extra)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
+        return
     calls = {
         "prefill": lambda: t_models.prefill(tp, toks, tcfg),
         "decode_step": lambda: t_models.decode_step(tp, None, toks[:, 0], 0, tcfg),
         "init_cache": lambda: t_models.init_cache(tcfg, 2, 16),
         "forward_prefill": lambda: t_models.forward(tp, toks, tcfg, mode="prefill"),
-        "forward_extra": lambda: t_models.forward(tp, toks, tcfg, extra={}),
     }
     with pytest.raises(NotImplementedError, match="The model zoo"):
         calls[entry]()
