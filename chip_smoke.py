@@ -124,7 +124,20 @@ sources there (``nvcc``, one process per source, all started together, into
      d_model=512)`` with their launches (1, 2 or 4 an aggregation), a
      bitwise rerun and the plain backend, the MoE ones with every round's
      top-k routing equal in both backends; each prints rounds/s, capture
-     seconds a level, peak memory and the batch schedule's bytes;
+     seconds a level, peak memory and the batch schedule's bytes; then the
+     zoo's decode entry points (``decode_path``): greedy decoding at batch 4
+     through ``prefill`` (pad_to = prompt + steps + 1) and ``decode_step``
+     with a device ``pos``, of SmolLM-360M at its published width and full
+     depth (32 layers; prompt 128, 32 steps), whisper-base (1500 frames;
+     prompt 64, 32 steps) and rwkv6-1.6b (24 layers, d_model 2048; prompt
+     64, 16 steps) at theirs, and llama-3.2-vision, qwen2-moe, arctic and
+     jamba at ``get_reduced_config(arch, d_model=512)`` (prompt 32, 8
+     steps): every step's logits against a full forward over the same
+     prefix (within 1e-3 of the largest |logit|), the tokens the forward's
+     argmax wherever its top-2 margin allows, a bitwise rerun, one step
+     under the sync check, the MoE layers' experts equal to the forward's;
+     each prints prefill ms, decode ms a token, tokens/s, peak memory, the
+     largest logit error and the least top-2 margin;
  10. times each kernel at the main path's shapes beside its plain version,
      one PyTorch library call where one computes the same function, and the
      card's bound; the tree kernels also over the main path's four-leaf
@@ -184,6 +197,7 @@ from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import init_params, task_for_config  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
+from repro_torch.models import transformer as zoo_tf  # noqa: E402
 from repro_torch.models.transformer import loss_fn as zoo_loss  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, and float32 rate outside the tensor
@@ -2064,6 +2078,155 @@ def zoo_families_path(dev):
     return out
 
 
+# ------------------------------------------- 9c. the decode entry points
+
+DECODE_BATCH = 4
+# (arch, at its published width and depth?, prompt tokens, decode steps)
+DECODE_MODELS = (("smollm-360m", True, 128, 32), (WHISPER, True, 64, 32),
+                 ("rwkv6-1.6b", True, 64, 16),
+                 ("llama-3.2-vision-90b", False, 32, 8),
+                 ("qwen2-moe-a2.7b", False, 32, 8),
+                 ("arctic-480b", False, 32, 8),
+                 ("jamba-1.5-large-398b", False, 32, 8))
+ROUTED_ARCHS = ("qwen2-moe-a2.7b", "arctic-480b", "jamba-1.5-large-398b")
+# a step's logits against the full forward's: of the step's largest |logit|
+# (the JAX package's own decode test allows 5e-3)
+DECODE_TOL = 1e-3
+
+
+def greedy(params, cfg, prompt, extra, steps):
+    """``prefill`` of the prompt (pad_to = prompt + steps + 1), then
+    ``steps`` greedy ``decode_step`` calls with a device ``pos``. Returns
+    (tokens (B, steps + 1), logits (B, steps + 1, V), prefill seconds,
+    decode seconds, the last cache, the next pos)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = zoo_tf.prefill(params, prompt, cfg, extra=extra,
+                                   pad_to=prompt.shape[1] + steps + 1)
+    tok = logits.argmax(-1)
+    pos = torch.tensor(prompt.shape[1], device=prompt.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, outs = [tok], [logits]
+    for _ in range(steps):
+        logits, cache = zoo_tf.decode_step(params, cache, tok, pos, cfg)
+        tok = logits.argmax(-1)
+        pos = pos + 1
+        toks.append(tok)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(toks, 1), torch.stack(outs, 1), t1 - t0, t2 - t1,
+            cache, pos)
+
+
+def decode_model(dev, arch, cfg, prompt_len, steps, smi):
+    """Greedy decoding of ``cfg`` at batch ``DECODE_BATCH`` from seeded
+    tokens (and frames or patches): a first run (the MoE archs' routing
+    recorded), then a second, timed, that must be bitwise equal. Each
+    step's logits, the prefill's included, against a full ``forward`` over
+    the same prefix (the tokens decoded so far): within ``DECODE_TOL`` of
+    the step's largest |logit|, and the decoded token the forward's argmax
+    wherever its top-2 margin exceeds twice that row's largest logit error
+    (a flip inside it is printed with its step and margin); the MoE layers'
+    top-k experts of each decode step equal to the forward's for the same
+    token; one more ``decode_step`` with the device ``pos`` under
+    ``set_sync_debug_mode("error")``. Prints the row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    B = DECODE_BATCH
+    prompt = torch.randint(0, cfg.vocab_size, (B, prompt_len),
+                           generator=gen).to(dev)
+    extra = None
+    if cfg.family in ("audio", "vlm"):
+        name, n = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                   else ("patches", cfg.n_image_tokens))
+        extra = {name: (0.1 * torch.randn(B, n, cfg.d_model,
+                                          generator=gen)).to(dev)}
+    routed = arch in ROUTED_ARCHS
+    with record_routing() if routed else contextlib.nullcontext([]) as calls:
+        toks1, out1, *_ = greedy(params, cfg, prompt, extra, steps)
+    moe_layers = len(calls) // (steps + 1) if routed else 0
+    step_routes = calls[moe_layers:]  # after the prefill's calls
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, out, prefill_s, decode_s, cache, pos = greedy(
+        params, cfg, prompt, extra, steps)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    rerun_bitwise = torch.equal(toks, toks1) and torch.equal(out, out1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zoo_tf.decode_step(params, cache, toks[:, -1], pos, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    worst, least, flips, route_diff, least_gap = 0.0, float("inf"), [], [], None
+    for i in range(steps + 1):  # step 0 the prefill's logits
+        seq = torch.cat([prompt, toks[:, :i]], 1)
+        with torch.no_grad(), (record_routing() if routed and i
+                               else contextlib.nullcontext([])) as fcalls:
+            full = zoo_tf.forward(params, seq, cfg, extra=extra)[0][:, -1]
+        err = (out[:, i] - full).abs().amax(-1)
+        worst = max(worst, float(err.max() / full.abs().max()))
+        top2 = full.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        least = min(least, float(margin.min()))
+        for b in torch.nonzero(full.argmax(-1) != toks[:, i]).flatten().tolist():
+            flips.append({"step": i, "row": b, "margin": float(margin[b]),
+                          "allowed": float(2 * err[b])})
+        for layer, (fc, dc) in enumerate(zip(fcalls, step_routes[
+                (i - 1) * moe_layers:i * moe_layers] if i else [])):
+            last = fc[0].reshape(B, seq.shape[1], -1)[:, -1]
+            least_gap = dc[1] if least_gap is None else min(least_gap, dc[1])
+            if not torch.equal(last.sort(-1).values, dc[0].sort(-1).values):
+                route_diff.append({"step": i, "layer": layer, "gap": dc[1]})
+    row = {"phase": "decode_path", "arch": arch, "family": cfg.family,
+           "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+           "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "encoder_seq": cfg.encoder_seq,
+           "params": sum(v.numel() for v in params.values()),
+           "batch": B, "prompt": prompt_len, "decode_steps": steps,
+           "prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_token": decode_s * 1e3 / steps,
+           "tokens_per_s": B * steps / decode_s, "peak_allocated_gb": peak_gb,
+           "max_rel_logit_err": worst, "limit": DECODE_TOL,
+           "least_top2_margin": least, "flips": flips,
+           "rerun_bitwise": rerun_bitwise, "sync_free_step": True,
+           "launches": launches,
+           "routing": {"moe_layers": moe_layers, "compared": moe_layers * steps,
+                       "differing": route_diff, "least_gap": least_gap}
+           if routed else None, "nvidia_smi": smi}
+    emit(row)
+    assert worst <= DECODE_TOL, (arch, worst)
+    assert all(f["margin"] <= f["allowed"] for f in flips), (arch, flips)
+    assert rerun_bitwise, f"{arch}: the rerun's tokens or logits differ"
+    assert not launches, (arch, launches)
+    assert not routed or (moe_layers and not route_diff), (arch, row["routing"])
+    del params, cache, out, out1
+    return row
+
+
+def decode_path(dev, smi):
+    """The zoo's decode entry points (``prefill``, ``decode_step``) through
+    ``decode_model``: SmolLM-360M at its published width and full depth (32
+    layers; prompt 128, 32 steps), whisper-base (1500 encoder frames;
+    prompt 64, 32 steps) and rwkv6-1.6b (24 layers, d_model 2048; prompt
+    64, 16 steps) at theirs, and llama-3.2-vision, qwen2-moe, arctic and
+    jamba at ``get_reduced_config(arch, d_model=512)`` (prompt 32, 8
+    steps). No kernel of the port is on this path. Returns the rows."""
+    rows = []
+    for arch, full, prompt, steps in DECODE_MODELS:
+        cfg = (get_config(arch) if full
+               else get_reduced_config(arch, d_model=REDUCED_D))
+        rows.append(decode_model(dev, arch, cfg, prompt, steps, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------- 10. timing
 
 
@@ -2466,6 +2629,9 @@ def main():
         by_path[f"halving {grid}"] = halving_path(task, grid)
     by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
     by_path.update(zoo_families_path(dev))
+    t_decode = time.perf_counter()
+    decode_path(dev, smi)
+    emit({"phase": "decode_path", "seconds": time.perf_counter() - t_decode})
     # every kernel ran on some path: its own count was not 0 there
     for k in KERNELS:
         assert any(counts.get(k) for counts in by_path.values()), f"{k} never ran"

@@ -15,13 +15,14 @@ the CUDA kernel ``kernels/csrc/cw_reduce.cu``, and the geometry rules
 every optimizer, on the Gaussian-mixture MLP task and App. E's quadratic;
 the ``repro.api`` facade (``Session`` and ``build_session``, the validated
 specs, the lane-batched sweep ``run_dynabro_scan_sweep`` with each rule's
-theta form, the scenario grids) and carry checkpoints; the model zoo's dense
-family (``configs``, ``models``: SmolLM-360M, Qwen3-0.6B, Qwen2.5-32B,
-CodeQwen1.5-7B as DynaBRO tasks, ``make_zoo_task`` / ``task_for_config``,
-on ``data.SyntheticLMData``) through the compiled driver's ``microbatch=True``
-streaming; the successive-halving sweep ``Session.sweep_halving``; and the
-aggregation service ``repro_torch.serve`` (a threaded server stepping a
-``Session`` from worker updates). Its names are re-exported here.
+theta form, the scenario grids) and carry checkpoints; the model zoo
+(``configs``, ``models``: every family of the registry as a DynaBRO task,
+``make_zoo_task`` / ``task_for_config``, on ``data.SyntheticLMData``)
+through the compiled driver's ``microbatch=True`` streaming, and its decode
+entry points (``models.init_cache``, ``prefill``, ``decode_step``); the
+successive-halving sweep ``Session.sweep_halving``; and the aggregation
+service ``repro_torch.serve`` (a threaded server stepping a ``Session``
+from worker updates). Its names are re-exported here.
 """
 from repro_torch.api import (
     AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, Optimizer, RoundInputs,
@@ -36,8 +37,8 @@ from repro_torch.checkpoint import (
     checkpoint_step, latest_checkpoint, load_checkpoint, save_checkpoint,
 )
 from repro_torch.convert import (
-    params_from_numpy, params_to_numpy, zoo_params_from_numpy,
-    zoo_params_to_numpy,
+    params_from_numpy, params_to_numpy, zoo_cache_from_numpy,
+    zoo_cache_to_numpy, zoo_params_from_numpy, zoo_params_to_numpy,
 )
 from repro_torch.core import (
     get_aggregator, get_attack, make_dynabro_step, make_momentum_step,
@@ -73,7 +74,8 @@ __all__ = [
     "LAUNCHES",
     # the model zoo
     "SyntheticLMData", "make_zoo_task", "task_for_config",
-    "zoo_params_from_numpy", "zoo_params_to_numpy",
+    "zoo_params_from_numpy", "zoo_params_to_numpy", "zoo_cache_from_numpy",
+    "zoo_cache_to_numpy",
     # repro.serve's names
     "AggregationServer", "ServeConfig", "Update", "RingBuffer",
     "ServeMetrics", "MetricsLog", "HealthEndpoint",

@@ -1,6 +1,7 @@
-"""The model zoo's dense family (``transformer``, ``layers``) and its DynaBRO
-tasks (``zoo``). The serving entry points are exported as in the JAX package
-and raise until serving is ported."""
+"""The model zoo: every family's decoder stack (``transformer``, ``layers``,
+``moe``, ``ssm``, ``flash``), its serving entry points (``init_cache``,
+``prefill``, ``decode_step``) and its DynaBRO tasks (``zoo``), exported as
+in the JAX package."""
 from repro_torch.models.transformer import (
     decode_step,
     forward,

@@ -1,13 +1,13 @@
 """Primitive layers: norms (and RWKV's per-head groupnorm), RoPE, chunked
-(online-softmax) attention, MLPs; the port of the JAX package's
-``models/layers.py``, function for function.
+(online-softmax) attention, single-token attention against a KV cache,
+MLPs; the port of the JAX package's ``models/layers.py``, function for
+function.
 
 Attention is the JAX package's online-softmax loop over KV chunks (and over
 query chunks), written as Python loops over plain tensor code: no library
 attention kernel, whose backward is not guaranteed deterministic. Products
 take float32 operands, as JAX's ``preferred_element_type=float32`` sums in
-float32. ``decode_attention`` comes with the decode entry points (``prefill``,
-``decode_step``; ROADMAP.md queue 1, "The model zoo").
+float32.
 """
 from __future__ import annotations
 
@@ -162,6 +162,28 @@ def chunked_attention(
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qc_n, H, hd)
                     .to(q.dtype))
     return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length_mask: torch.Tensor = None) -> torch.Tensor:
+    """Single-token attention against a KV cache. q: (B, 1, H, hd),
+    k_cache/v_cache: (B, S, KV, hd), length_mask: (B, S) bool, True = valid
+    -> (B, 1, H, hd) in q's dtype. GQA via reshaping q heads into (KV, G).
+    The scores sum in float32; the probabilities are cast to the cache's
+    dtype before P·V, which sums in float32, as in the JAX package."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    qh = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.to(F32), k_cache.to(F32)) * scale
+    if length_mask is not None:
+        s = torch.where(length_mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(F32),
+                       v_cache.to(F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------- MLP

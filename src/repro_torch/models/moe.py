@@ -1,5 +1,5 @@
 """GShard/Switch-style Mixture-of-Experts FFN with capacity-based dispatch;
-the port of the JAX package's ``models/moe.py`` in train mode.
+the port of the JAX package's ``models/moe.py``.
 
 Dense einsum dispatch: tokens x experts x capacity one-hots. The top-k
 comes from a stable descending sort, so a tie picks the lower expert index
@@ -87,21 +87,21 @@ def moe_ffn(x: torch.Tensor, p: dict, *, top_k: int, capacity_factor: float,
 
     ``token_group`` > 0 routes tokens in independent groups of that size
     (GShard-style grouping) when it divides B·S and is smaller, each at
-    its own capacity; the aux is then the groups' mean. Returns (out
-    (B,S,D), aux_loss scalar). The decode branch (S == 1) and
-    ``expert_shard`` are not ported."""
+    its own capacity; the aux is then the groups' mean. A decode step (S ==
+    1) routes its B tokens as one group at capacity B, so no token is
+    dropped. Returns (out (B,S,D), aux_loss scalar). ``expert_shard`` is not
+    ported."""
     if expert_shard:
         raise NotImplementedError(
             "moe_ffn(expert_shard=) is not ported to repro_torch yet "
             "(ROADMAP.md queue 1, 'Multi-device')")
     B, S, D = x.shape
-    if S == 1:
-        raise NotImplementedError(
-            "moe_ffn's decode branch (S == 1) is not ported to repro_torch "
-            "yet (ROADMAP.md queue 1, 'The model zoo')")
     E = p["router"].shape[1]
     N = B * S
     xf = x.reshape(N, D)
+    if S == 1:
+        out, aux = _moe_group(xf, p, top_k, N, act)
+        return out.reshape(B, S, D), aux
     if token_group and N > token_group and N % token_group == 0:
         capacity = _capacity(token_group, top_k, capacity_factor, E)
         xg = xf.reshape(N // token_group, token_group, D)

@@ -1,6 +1,7 @@
 """State-space mixers: Mamba (S6 selective scan) and RWKV-6 (Finch) time-mix
-and channel-mix; the port of the JAX package's ``models/ssm.py`` in train
-mode (``cache=None``).
+and channel-mix; the port of the JAX package's ``models/ssm.py``. Each
+mixer runs a whole sequence (``cache=None``: train and prefill, returning
+the prefill cache) or one decode step against its cache.
 
 Mamba's selective scan runs over sequence chunks carrying the SSM state,
 with a log-depth (Hillis-Steele) prefix scan inside each chunk. The JAX
@@ -9,9 +10,7 @@ two agree to float32 rounding, not bitwise. The causal convolution is k
 shifted multiply-adds, not ``F.conv1d``: a card's convolution backward is
 not bitwise on rerun unless deterministic mode is forced, and the compiled
 driver's contract is bitwise reruns. RWKV's wkv recurrence is sequential
-over the sequence, as in the JAX package. The decode step
-(``selective_step``, every mixer's ``cache`` branch) comes with the decode
-entry points (ROADMAP.md queue 1, "The model zoo").
+over the sequence, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,12 +20,6 @@ import torch.nn.functional as F
 from repro_torch.models.layers import group_norm_heads
 
 F32 = torch.float32
-
-
-def _decode_unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        "'The model zoo': the decode entry points)")
 
 
 # ================================================================ Mamba
@@ -78,6 +71,19 @@ def selective_scan(x, delta, A, B, C, D, h0=None, chunk: int = 256):
     return torch.cat(ys, dim=1), h
 
 
+def selective_step(x, delta, A, B, C, D, h):
+    """One decode step of ``selective_scan``, all in float32. x/delta: (Bt,
+    di); B/C: (Bt, ds); h: (Bt, di, ds). Returns (y (Bt, di) in x's dtype,
+    the new h)."""
+    xf = x.to(F32)
+    dt = delta.to(F32)
+    a = torch.exp(dt[..., None] * A[None])
+    b = (dt * xf)[..., None] * B[:, None, :].to(F32)
+    h = a * h + b
+    y = torch.einsum("bds,bs->bd", h, C.to(F32)) + D[None] * xf
+    return y.to(x.dtype), h
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x: (Bt, L, di), w: (k, di) -> (Bt, L, di):
     out[t] = sum_i w[i]·x[t - (k-1) + i], the earlier taps first."""
@@ -90,27 +96,38 @@ def _causal_conv(x, w, b):
 
 
 def mamba_mixer(x, p, cfg, cache=None, pos=None):
-    """Mamba block. x: (Bt, L, D). Returns (y, the prefill cache: conv (Bt,
-    k-1, di), the last k-1 raw conv inputs, and ssm (Bt, di, ds), the final
-    state)."""
-    if cache is not None:
-        _decode_unported("mamba_mixer(cache=)")
+    """Mamba block. x: (Bt, L, D). Without ``cache``, returns (y, the
+    prefill cache: conv (Bt, k-1, di), the last k-1 raw conv inputs, left
+    padded with zeros when L < k-1, and ssm (Bt, di, ds), the final state).
+    With ``cache`` {conv, ssm}, one decode step (L == 1): the window is the
+    conv state, cast to x's dtype, and the new input; returns (y, {conv: the
+    window's last k-1 inputs, ssm: the new float32 state})."""
     ds = cfg.mamba_d_state
     xz = x @ p["in_proj"]  # (Bt, L, 2*di)
     xi_raw, z = torch.chunk(xz, 2, dim=-1)
     A = -torch.exp(p["A_log"].to(F32))  # (di, ds)
-    xi = F.silu(_causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
-    dbc = xi @ p["x_proj"]  # (Bt, L, dt_rank + 2*ds)
     dt_rank = p["dt_proj"].shape[0]
-    dt, Bssm, Cssm = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
-    delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
-    y, h_last = selective_scan(xi, delta, A, Bssm, Cssm, p["D"])
-    k = p["conv_w"].shape[0]
-    tail = xi_raw[:, -(k - 1):]
-    if tail.shape[1] < k - 1:
-        tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+    if cache is None:
+        xi = F.silu(_causal_conv(xi_raw, p["conv_w"], p["conv_b"]))
+        dbc = xi @ p["x_proj"]  # (Bt, L, dt_rank + 2*ds)
+        dt, Bssm, Cssm = torch.split(dbc, [dt_rank, ds, ds], dim=-1)
+        delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+        y, h_last = selective_scan(xi, delta, A, Bssm, Cssm, p["D"])
+        k = p["conv_w"].shape[0]
+        tail = xi_raw[:, -(k - 1):]
+        if tail.shape[1] < k - 1:
+            tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+        new_cache = {"conv": tail, "ssm": h_last}
+    else:
+        xin = torch.cat([cache["conv"].to(xi_raw.dtype), xi_raw], dim=1)
+        xc = F.silu(torch.einsum("bkd,kd->bd", xin, p["conv_w"]) + p["conv_b"])
+        dt, Bssm, Cssm = torch.split(xc @ p["x_proj"], [dt_rank, ds, ds], dim=-1)
+        delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+        yb, h = selective_step(xc, delta, A, Bssm, Cssm, p["D"], cache["ssm"])
+        y = yb[:, None]
+        new_cache = {"conv": xin[:, 1:], "ssm": h}
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": tail, "ssm": h_last}
+    return y @ p["out_proj"], new_cache
 
 
 # ================================================================ RWKV-6
@@ -137,21 +154,24 @@ def _rwkv_wkv_scan(r, k, v, w, u, s0):
     return torch.stack(ys, dim=1), S  # (Bt, L, H, hd)
 
 
-def _shift(x):
-    """The previous position's x, zeros at the first. x: (Bt, L, D)."""
+def _shift(x, cache):
+    """The previous position's x: zeros before the first, or the cache's
+    ``prev`` (Bt, D) in a decode step. x: (Bt, L, D)."""
+    if cache is not None:
+        return cache["prev"][:, None]
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
 def rwkv_time_mix(x, p, cfg, cache=None):
-    """RWKV-6 time mixing. x: (Bt, L, D) post-norm input. Returns (y, the
-    prefill cache: prev (Bt, D), state (Bt, H, hd, hd))."""
-    if cache is not None:
-        _decode_unported("rwkv_time_mix(cache=)")
+    """RWKV-6 time mixing. x: (Bt, L, D) post-norm input; ``cache`` (decode)
+    {prev (Bt, D), state (Bt, H, hd, hd)}, else a zero state. Returns (y,
+    the new cache: prev x[:, -1], the final float32 state)."""
     Bt, L, Dm = x.shape
     hd = cfg.rwkv_head_dim
     H = Dm // hd
-    s0 = torch.zeros((Bt, H, hd, hd), dtype=F32, device=x.device)
-    d = _shift(x) - x
+    s0 = (torch.zeros((Bt, H, hd, hd), dtype=F32, device=x.device)
+          if cache is None else cache["state"])
+    d = _shift(x, cache) - x
     xr = x + d * p["mu_r"]
     xk = x + d * p["mu_k"]
     xv = x + d * p["mu_v"]
@@ -171,11 +191,9 @@ def rwkv_time_mix(x, p, cfg, cache=None):
 
 
 def rwkv_channel_mix(x, p, cache=None):
-    """RWKV channel mix. x: (Bt, L, D). Returns (out, the prefill cache:
-    prev (Bt, D))."""
-    if cache is not None:
-        _decode_unported("rwkv_channel_mix(cache=)")
-    d = _shift(x) - x
+    """RWKV channel mix. x: (Bt, L, D); ``cache`` (decode) {prev (Bt, D)}.
+    Returns (out, the new cache: prev x[:, -1])."""
+    d = _shift(x, cache) - x
     xk = x + d * p["mu_k"]
     xr = x + d * p["mu_r"]
     k = torch.square(F.relu(xk @ p["wk"]))

@@ -1,6 +1,6 @@
 """The decoder stack of every family of the model zoo (dense, MoE, hybrid
 Mamba, RWKV, audio encoder-decoder, VLM cross-attention), the port of the
-JAX package's ``models/transformer.py`` in train mode.
+JAX package's ``models/transformer.py``.
 
 Parameters are a flat ``dict[str, Tensor]`` whose keys join the JAX
 package's tree paths with "/" (``embed``, ``final_norm/scale``,
@@ -19,11 +19,23 @@ bitwise reruns. Attention is ``flash.flash_attention`` for the default
 ``attn_impl="flash"`` (kv_chunk 1024) and ``layers.chunked_attention`` for
 ``"chunked"``, as in the JAX package.
 
-Ported: ``init_params``, ``forward`` (train mode) and ``loss_fn`` (with the
-router's load-balance aux) for every architecture of the registry. The
-decode entry points (``prefill``, ``decode_step``, ``init_cache``,
-``forward(mode=...)`` other than "train") and ``forward(remat=)`` raise
-``NotImplementedError`` naming ROADMAP.md queue 1's item that brings them.
+Entry points, for every architecture of the registry: ``init_params``,
+``forward`` (train and prefill mode) and ``loss_fn`` (with the router's
+load-balance aux); and the serving ones, ``init_cache``, ``prefill`` and
+``decode_step``. A cache is a flat ``dict[str, Tensor]`` keyed like the
+params under "blocks/" (``b0/mix/k``, ``b0/cross/v``, ``b1/mlp/prev``,
+...), each leaf stacked on a leading (n_groups, ...) axis;
+``convert.zoo_cache_from_numpy`` carries a JAX cache over. ``decode_step``
+returns a new cache and leaves its argument as it was; given ``pos`` as a
+tensor on the card it reads nothing back to the host. A self-attention
+cache is a ring: position p goes to slot p % its length, as in the JAX
+package, whose windowed prefill cache (the last ``sliding_window`` keys in
+slots 0..W-1) agrees with that ring only when the prompt's length is a
+multiple of W; the port keeps that layout (ROADMAP.md §3).
+
+``forward(remat=True)`` in train mode, the JAX package's default, raises
+``NotImplementedError`` naming ROADMAP.md queue 1's item that brings it;
+the port's default is ``remat=False``.
 """
 from __future__ import annotations
 
@@ -31,26 +43,22 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
-    apply_norm, apply_rope, chunked_attention, mlp, rms_norm, rope_angles,
+    apply_norm, apply_rope, chunked_attention, decode_attention, mlp, rms_norm,
+    rope_angles,
 )
 from repro_torch.models.moe import moe_ffn
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
-ITEM = "The model zoo"  # ROADMAP.md queue 1's item for the rest
+REMAT_ITEM = "Recomputing forward (remat=)"  # ROADMAP.md queue 1's item
 DEC_POS = 32768  # rows of the audio decoder's learned position table
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"{ITEM!r})")
 
 
 # ================================================================ init
@@ -252,26 +260,43 @@ def _layers(params: Params, pre: str, n: int):
 
 
 def _attn_apply(x, p: Params, cfg: ModelConfig, *, cross=False, kv_src=None,
-                causal=True):
+                causal=True, cache=None, pos=None, mode="train", pad_to=0):
     """Attention with its pre-norm and residual; ``p`` the block's attention
     leaves. ``cross`` attends from x to ``kv_src`` (B, E, D): no RoPE, no
-    mask, no window. The audio family takes no RoPE at all."""
+    mask, no window. The audio family takes no RoPE at all. Returns (x, the
+    new cache): None in train mode; in prefill mode k and v, the last
+    ``sliding_window`` of them for a windowed self-attention, else padded
+    with zeros to ``pad_to`` slots (self-attention only); in decode mode
+    (one token at ``pos``) the cache: self-attention writes k and v, cast
+    to the cache's dtype, at slot pos % its length and attends to the
+    slots below min(pos + 1, length); cross-attention reads its cached k
+    and v and computes none."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = apply_norm(x, _sub(p, "ln/"), cfg.norm)
-    src = kv_src if cross else h
     q = h @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    rope = cfg.family != "audio" and not cross
+    if cross and mode == "decode":
+        out = decode_attention(q, cache["k"], cache["v"])
+        return x + out.reshape(B, S, H * hd) @ p["wo"], cache
+    src = kv_src if cross else h
     k = src @ p["wk"]
     v = src @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, -1, KV, hd)
     v = v.reshape(B, -1, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    if cfg.family != "audio" and not cross:
+    if mode == "decode":
+        out, new_cache = _decode_self_attention(q, k, v, cache, pos, cfg, rope)
+        return x + out.reshape(B, S, H * hd) @ p["wo"], new_cache
+    if rope:
         cos, sin = rope_angles(torch.arange(S, device=x.device), hd,
                                cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -283,18 +308,49 @@ def _attn_apply(x, p: Params, cfg: ModelConfig, *, cross=False, kv_src=None,
     else:
         out = chunked_attention(q, k, v, causal=causal and not cross,
                                 window=window)
-    return x + out.reshape(B, S, H * hd) @ p["wo"]
+    new_cache = None
+    if mode == "prefill":
+        if window:
+            k, v = k[:, -window:], v[:, -window:]
+        elif pad_to > k.shape[1] and not cross:
+            pad = (0, 0, 0, 0, 0, pad_to - k.shape[1])
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        new_cache = {"k": k, "v": v}
+    return x + out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
-def _mlp_apply(x, p: Params, cfg: ModelConfig, mlp_kind: str):
-    """The layer's MLP with its pre-norm and residual. Returns (x, aux),
-    aux the router's load-balance loss (None without a router)."""
+def _decode_self_attention(q, k, v, cache, pos, cfg: ModelConfig, rope: bool):
+    """One token's self-attention against the ring ``cache`` {k, v} (B, Sc,
+    KV, hd) at position ``pos`` (a 0-d tensor): RoPE at pos, k and v cast
+    to the cache's dtype into slot pos % Sc, a mask of the slots below
+    min(pos + 1, Sc). Returns (out (B, 1, H, hd), the new cache); no value
+    is read back to the host."""
+    B, Sc = q.shape[0], cache["k"].shape[1]
+    if rope:
+        cos, sin = rope_angles(pos[None], cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    slots = torch.arange(Sc, device=q.device)
+    at = (slots == pos % Sc)[None, :, None, None]
+    kc = torch.where(at, k.to(cache["k"].dtype), cache["k"])
+    vc = torch.where(at, v.to(cache["v"].dtype), cache["v"])
+    valid = slots < torch.clamp(pos + 1, max=Sc)
+    out = decode_attention(q, kc, vc, valid[None].expand(B, Sc))
+    return out, {"k": kc, "v": vc}
+
+
+def _mlp_apply(x, p: Params, cfg: ModelConfig, mlp_kind: str, *, cache=None,
+               mode="train"):
+    """The layer's MLP with its pre-norm and residual. Returns (x, aux, the
+    new cache), aux the router's load-balance loss (None without a router);
+    only RWKV's channel mix has a cache (None in train mode)."""
     h = apply_norm(x, _sub(p, "ln/"), cfg.norm)
     if mlp_kind == "rwkv_cmix":
-        return x + ssm.rwkv_channel_mix(h, p)[0], None
+        out, c = ssm.rwkv_channel_mix(h, p, cache if mode == "decode" else None)
+        return x + out, None, None if mode == "train" else c
     moe = _sub(p, "moe/")
     if not moe:
-        return x + mlp(h, _sub(p, "dense/"), cfg.act), None
+        return x + mlp(h, _sub(p, "dense/"), cfg.act), None, None
     out, aux = moe_ffn(h, moe, top_k=cfg.top_k,
                        capacity_factor=cfg.capacity_factor, act=cfg.act,
                        token_group=cfg.moe_token_group,
@@ -304,26 +360,39 @@ def _mlp_apply(x, p: Params, cfg: ModelConfig, mlp_kind: str):
         out = out + mlp(h, shared, cfg.act)
     if mlp_kind == "moe+dense":
         out = out + mlp(h, _sub(p, "dense/"), cfg.act)
-    return x + out, aux
+    return x + out, aux, None
 
 
 def _block_apply(x, p: Params, cfg: ModelConfig, mixer: str, mlp_kind: str,
-                 kv_src=None):
-    """One layer; ``p`` its leaves keyed "mix/…", "cross/…", "mlp/…".
-    Returns (x, aux or None)."""
+                 kv_src=None, *, cache=None, pos=None, mode="train", pad_to=0):
+    """One layer; ``p`` its leaves keyed "mix/…", "cross/…", "mlp/…", and
+    ``cache`` (decode) its cache leaves keyed alike. Returns (x, aux or
+    None, the layer's new cache leaves: empty in train mode)."""
+    cache = cache or {}
+    new_cache = {}
     mix = _sub(p, "mix/")
     if mixer in ("attn", "cross_attn"):
-        x = _attn_apply(x, mix, cfg, cross=mixer == "cross_attn", kv_src=kv_src)
+        x, c = _attn_apply(x, mix, cfg, cross=mixer == "cross_attn",
+                           kv_src=kv_src, cache=_sub(cache, "mix/"), pos=pos,
+                           mode=mode, pad_to=pad_to)
+        new_cache.update(_under("mix/", c or {}))
         if cfg.family == "audio":  # whisper decoder adds cross-attn
-            x = _attn_apply(x, _sub(p, "cross/"), cfg, cross=True,
-                            kv_src=kv_src)
-    elif mixer == "mamba":
+            x, c = _attn_apply(x, _sub(p, "cross/"), cfg, cross=True,
+                               kv_src=kv_src, cache=_sub(cache, "cross/"),
+                               pos=pos, mode=mode)
+            new_cache.update(_under("cross/", c or {}))
+    elif mixer in ("mamba", "rwkv"):
         h = apply_norm(x, _sub(mix, "ln/"), cfg.norm)
-        x = x + ssm.mamba_mixer(h, mix, cfg)[0]
-    elif mixer == "rwkv":
-        h = apply_norm(x, _sub(mix, "ln/"), cfg.norm)
-        x = x + ssm.rwkv_time_mix(h, mix, cfg)[0]
-    return _mlp_apply(x, _sub(p, "mlp/"), cfg, mlp_kind)
+        mixer_fn = ssm.mamba_mixer if mixer == "mamba" else ssm.rwkv_time_mix
+        out, c = mixer_fn(h, mix, cfg,
+                          cache=_sub(cache, "mix/") if mode == "decode" else None)
+        x = x + out
+        if mode != "train":
+            new_cache.update(_under("mix/", c))
+    x, aux, c = _mlp_apply(x, _sub(p, "mlp/"), cfg, mlp_kind,
+                           cache=_sub(cache, "mlp/"), mode=mode)
+    new_cache.update(_under("mlp/", c or {}))
+    return x, aux, new_cache
 
 
 # ================================================================ stacks
@@ -344,8 +413,8 @@ def _encoder_forward(params: Params, frames: torch.Tensor, cfg: ModelConfig):
     x = frames + _sinusoids(frames.shape[1], cfg.d_model,
                             frames.device).to(frames.dtype)[None]
     for lp in _layers(params, "encoder/blocks/", cfg.n_encoder_layers):
-        x = _attn_apply(x, _sub(lp, "attn/"), cfg, causal=False)
-        x, _ = _mlp_apply(x, _sub(lp, "mlp/"), cfg, "dense")
+        x, _ = _attn_apply(x, _sub(lp, "attn/"), cfg, causal=False)
+        x, _, _ = _mlp_apply(x, _sub(lp, "mlp/"), cfg, "dense")
     return apply_norm(x, _sub(params, "encoder/final_norm/"), cfg.norm)
 
 
@@ -380,26 +449,45 @@ def _kv_src(params: Params, cfg: ModelConfig, extra: dict):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            extra: Optional[dict] = None, mode: str = "train"):
+            extra: Optional[dict] = None, mode: str = "train",
+            remat: bool = False, pad_to: int = 0):
     """Full causal forward of (B, S) tokens, ``extra`` the audio family's
     {"frames": (B, encoder_seq, D)} or the VLM's {"patches": (B,
     n_image_tokens, D)} (ignored by the other families). Returns (logits (B,
-    S, V), aux), aux the routers' load-balance loss summed over the layer
-    groups (0 without a router)."""
-    if mode != "train":
-        _unported(f"forward(mode={mode!r}) (the decode entry points)")
+    S, V), aux) in train mode and (logits, aux, cache) in prefill mode
+    (``mode="prefill"``; ``pad_to`` as in ``prefill``), aux the routers'
+    load-balance loss summed over the layer groups (0 without a router).
+
+    ``remat=True`` in train mode raises ``NotImplementedError`` (ROADMAP.md
+    queue 1, "Recomputing forward (remat=)"): the default is False here,
+    where the JAX package's is True, until that item. Outside train mode
+    ``remat`` changes nothing, as in the JAX package."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward: mode {mode!r} is not 'train' or "
+                         "'prefill' (decode_step runs one decode step)")
+    if remat and mode == "train":
+        raise NotImplementedError(
+            "forward(remat=True) is not ported to repro_torch yet (ROADMAP.md "
+            f"queue 1, {REMAT_ITEM!r}); pass remat=False")
     x = _embed_tokens(params, tokens, cfg)
     kv_src = _kv_src(params, cfg, extra or {})
-    auxs = []
+    auxs, caches = [], []
     for gp in _layers(params, "blocks/", cfg.n_groups):
         aux = torch.zeros((), dtype=F32, device=x.device)
+        cache = {}
         for i, (mixer, mk) in enumerate(cfg.pattern()):
-            x, a = _block_apply(x, _sub(gp, f"b{i}/"), cfg, mixer, mk, kv_src)
+            x, a, c = _block_apply(x, _sub(gp, f"b{i}/"), cfg, mixer, mk,
+                                   kv_src, mode=mode, pad_to=pad_to)
             if a is not None:
                 aux = aux + a
+            cache.update(_under(f"b{i}/", c))
         auxs.append(aux)
+        caches.append(cache)
     logits = _unembed(params, x, cfg)
-    return logits, torch.stack(auxs).sum()
+    aux = torch.stack(auxs).sum()
+    if mode == "prefill":
+        return logits, aux, _stack_groups(caches)
+    return logits, aux
 
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -416,17 +504,88 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------- serving
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None):
-    """The decode cache: not ported (the decode entry points)."""
-    _unported("init_cache (the decode entry points)")
+def _stack_groups(caches):
+    """One cache dict a layer group -> each leaf stacked over the groups."""
+    return {k: torch.stack([c[k] for c in caches]) for k in sorted(caches[0])}
 
 
-def decode_step(params: Params, cache, token, pos, cfg: ModelConfig):
-    """One serving step: not ported (the decode entry points)."""
-    _unported("decode_step (the decode entry points)")
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Params:
+    """An empty decode cache on ``device``, the JAX package's ``init_cache``
+    flattened: per layer of a group, self-attention k/v (batch, seq_len or
+    the sliding window if smaller, KV, hd), whisper's cross k/v (batch,
+    encoder_seq, KV, hd), the VLM's (batch, n_image_tokens, KV, hd),
+    Mamba's conv (batch, mamba_conv - 1, d_inner) and ssm (batch, d_inner,
+    d_state), RWKV's prev (batch, D) and state (batch, H, hd, hd), the
+    channel mix's prev (batch, D); every leaf zeros in ``dtype`` but the
+    ssm and wkv states, float32, and stacked over n_groups."""
+    dev = resolve_device(device)
+    KV, hd, D = cfg.n_kv_heads, cfg.hd, cfg.d_model
+    S_eff = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    leaves = {}
+    for i, (mixer, mk) in enumerate(cfg.pattern()):
+        b = f"b{i}/"
+        if mixer == "attn":
+            for n in ("k", "v"):
+                leaves[f"{b}mix/{n}"] = ((batch, S_eff, KV, hd), dtype)
+                if cfg.family == "audio":
+                    leaves[f"{b}cross/{n}"] = (
+                        (batch, cfg.encoder_seq, KV, hd), dtype)
+        elif mixer == "cross_attn":
+            for n in ("k", "v"):
+                leaves[f"{b}mix/{n}"] = (
+                    (batch, cfg.n_image_tokens, KV, hd), dtype)
+        elif mixer == "mamba":
+            di = cfg.mamba_expand * D
+            leaves[b + "mix/conv"] = ((batch, cfg.mamba_conv - 1, di), dtype)
+            leaves[b + "mix/ssm"] = ((batch, di, cfg.mamba_d_state), F32)
+        elif mixer == "rwkv":
+            rhd = cfg.rwkv_head_dim
+            leaves[b + "mix/prev"] = ((batch, D), dtype)
+            leaves[b + "mix/state"] = ((batch, D // rhd, rhd, rhd), F32)
+        if mk == "rwkv_cmix":
+            leaves[b + "mlp/prev"] = ((batch, D), dtype)
+    return {k: torch.zeros((cfg.n_groups,) + shape, dtype=dt, device=dev)
+            for k, (shape, dt) in sorted(leaves.items())}
 
 
-def prefill(params: Params, tokens, cfg: ModelConfig, extra=None,
-            pad_to: int = 0):
-    """Prefill pass: not ported (the decode entry points)."""
-    _unported("prefill (the decode entry points)")
+@torch.no_grad()
+def decode_step(params: Params, cache: Params, token: torch.Tensor, pos,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+    """One serving step: token (B,) ints at position ``pos`` (the tokens so
+    far: an int or a 0-d integer tensor, best on the params' device, where
+    the step then reads nothing back to the host). Returns (logits (B, V),
+    the new cache); ``cache`` is left as it was. The embedding row is read
+    by index (no gradient flows here), the audio decoder's learned position
+    row at ``pos``."""
+    embed = params["embed"]
+    pos = torch.as_tensor(pos, device=embed.device)
+    x = embed.index_select(0, token.to(torch.int64))[:, None]  # (B, 1, D)
+    if cfg.family == "audio":
+        row = torch.clamp(pos, 0, DEC_POS - 1).reshape(1)
+        x = x + params["dec_pos"].index_select(0, row)
+    caches = []
+    for g, gp in enumerate(_layers(params, "blocks/", cfg.n_groups)):
+        gc = {k: v[g] for k, v in cache.items()}
+        new = {}
+        for i, (mixer, mk) in enumerate(cfg.pattern()):
+            b = f"b{i}/"
+            x, _, c = _block_apply(x, _sub(gp, b), cfg, mixer, mk,
+                                   cache=_sub(gc, b), pos=pos, mode="decode")
+            new.update(_under(b, c))
+        caches.append(new)
+    logits = _unembed(params, x, cfg)
+    return logits[:, 0], _stack_groups(caches)
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra: Optional[dict] = None, pad_to: int = 0):
+    """Prefill pass: returns (the last position's logits (B, V), the cache).
+
+    ``pad_to`` grows the self-attention KV caches to this many slots, so
+    that the ``decode_step`` calls after it append instead of overwriting
+    the ring's earliest slots."""
+    logits, _, cache = forward(params, tokens, cfg, extra=extra,
+                               mode="prefill", pad_to=pad_to)
+    return logits[:, -1], cache

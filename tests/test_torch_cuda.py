@@ -1512,3 +1512,52 @@ def test_whisper_full_width_unit_against_cpu(ieee_f32):
         scale = max(1.0, float(g_cpu[k].abs().max()))
         torch.testing.assert_close(g_dev[k].cpu(), g_cpu[k], rtol=1e-4,
                                    atol=1e-6 * scale, msg=k)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-0.6b",
+                                  "qwen2-moe-a2.7b", "arctic-480b",
+                                  "whisper-base", "llama-3.2-vision-90b",
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_decode_on_card_against_cpu(ieee_f32, arch):
+    """``prefill`` and three greedy ``decode_step`` calls of the reduced
+    arch (d_model 64) on the card against the plain CPU path: logits at
+    MODEL_TOL (rtol 1e-4, atol 1e-6 times the larger of 1 and the largest
+    |logit|; 3e-6 for rwkv6 and jamba) and the same tokens; each card step
+    with the device ``pos`` under ``set_sync_debug_mode("error")``."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import decode_step, init_params, prefill
+    dev = ieee_f32
+    cfg = get_reduced_config(arch, d_model=64)
+    params = init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 7), generator=gen)
+    extra = None
+    if cfg.family in ("audio", "vlm"):
+        name, n = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                   else ("patches", cfg.n_image_tokens))
+        extra = {name: torch.randn(2, n, 64, generator=gen)}
+    atol = 3e-6 if cfg.family in ("ssm", "hybrid") else 1e-6
+
+    def greedy(p, toks, extra, device, sync_check):
+        logits, cache = prefill(p, toks, cfg, extra=extra, pad_to=11)
+        pos = torch.tensor(7, device=device)
+        out = [logits]
+        for _ in range(3):
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = decode_step(p, cache, out[-1].argmax(-1), pos,
+                                            cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append(logits)
+            pos = pos + 1
+        return torch.stack(out, 1)
+
+    want = greedy(params, toks, extra, "cpu", False)
+    got = greedy({k: v.to(dev) for k, v in params.items()}, toks.to(dev),
+                 None if extra is None else
+                 {k: v.to(dev) for k, v in extra.items()}, dev, True).cpu()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=atol * max(1.0, float(want.abs().max())))

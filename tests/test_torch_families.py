@@ -187,9 +187,17 @@ def test_moe_ffn_drops_tokens_at_tiny_capacity():
 
 
 def test_moe_unported_branches_raise():
+    """``expert_shard`` raises, naming "Multi-device". The decode branch (S
+    == 1), which raised before the decode entry points were ported (the
+    name is kept), now routes its tokens as JAX's does, at capacity B
+    (``tests/test_torch_decode.py`` holds it in full)."""
     p = _torch_tree(_moe_params(0))
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        t_moe.moe_ffn(torch.zeros(2, 1, 16), p, top_k=2, capacity_factor=1.0)
+    x = _normal(9, (2, 1, 16))
+    want, want_aux = j_moe.moe_ffn(jnp.asarray(x), _moe_params(0),
+                                   top_k=2, capacity_factor=1.0)
+    got, aux = t_moe.moe_ffn(_t(x), p, top_k=2, capacity_factor=1.0)
+    _close(got, want)
+    _close(aux, want_aux)
     with pytest.raises(NotImplementedError, match="Multi-device"):
         t_moe.moe_ffn(torch.zeros(2, 4, 16), p, top_k=2, capacity_factor=1.0,
                       expert_shard="data")
@@ -287,8 +295,13 @@ def test_mamba_mixer_matches_jax():
         _t(x), p, tcfg)[0] * _t(w)))(_torch_tree(p))
     for k, v in _flat_jax(jg).items():
         _close_model(tg[k], v, k)
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        t_ssm.mamba_mixer(_t(x), _torch_tree(p), tcfg, cache={})
+    # the decode branch, once raising: one token from the prefill cache
+    x1 = _normal(9, (2, 1, 64))
+    jy, jc = j_ssm.mamba_mixer(jnp.asarray(x1), _nested(p), jcfg, cache=jc)
+    ty, tc = t_ssm.mamba_mixer(_t(x1), _torch_tree(p), tcfg, cache=tc)
+    _close(ty, jy, dict(rtol=1e-5, atol=2e-6))
+    _close(tc["conv"], jc["conv"])
+    _close(tc["ssm"], jc["ssm"], dict(rtol=1e-5, atol=2e-6))
 
 
 # ------------------------------------------------------------- RWKV-6
@@ -314,8 +327,13 @@ def test_rwkv_time_mix_matches_jax():
         _t(x), p, tcfg)[0] * _t(w)))(_torch_tree(p))
     for k, v in _flat_jax(jg).items():
         _close_model(tg[k], v, k)
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        t_ssm.rwkv_time_mix(_t(x), _torch_tree(p), tcfg, cache={})
+    # the decode branch, once raising: one token from the prefill cache
+    x1 = _normal(9, (2, 1, 64))
+    jy, jc = j_ssm.rwkv_time_mix(jnp.asarray(x1), _nested(p), jcfg, cache=jc)
+    ty, tc = t_ssm.rwkv_time_mix(_t(x1), _torch_tree(p), tcfg, cache=tc)
+    _close(ty, jy)
+    _close(tc["prev"], jc["prev"])
+    _close(tc["state"], jc["state"])
 
 
 def test_rwkv_channel_mix_matches_jax():
@@ -325,8 +343,12 @@ def test_rwkv_channel_mix_matches_jax():
     ty, tc = t_ssm.rwkv_channel_mix(_t(x), _torch_tree(p))
     _close(ty, jy)
     _close(tc["prev"], jc["prev"])
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        t_ssm.rwkv_channel_mix(_t(x), _torch_tree(p), cache={})
+    # the decode branch, once raising: one token from the prefill cache
+    x1 = _normal(9, (2, 1, 64))
+    jy, jc = j_ssm.rwkv_channel_mix(jnp.asarray(x1), _nested(p), cache=jc)
+    ty, tc = t_ssm.rwkv_channel_mix(_t(x1), _torch_tree(p), cache=tc)
+    _close(ty, jy)
+    _close(tc["prev"], jc["prev"])
 
 
 # ------------------------------------------------------------- the models

@@ -325,14 +325,28 @@ def test_unported_families_raise(arch):
     _close(aux, j_aux, LAYER_TOL)
 
 
+def _shapes(tree):
+    """name -> (shape, dtype name) of every leaf of a flat cache or of a
+    JAX cache tree."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                for k, v in tree.items()}
+    return {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat_jax(tree).items()}
+
+
 @pytest.mark.parametrize("entry", ["prefill", "decode_step", "init_cache",
-                                   "forward_prefill", "forward_extra"])
+                                   "forward_prefill", "forward_extra",
+                                   "forward_remat"])
 def test_serving_entry_points_raise(entry):
-    """The decode entry points raise, naming "The model zoo". The
+    """The serving entry points, once raising "The model zoo", now run and
+    return the JAX package's structure: the same tuple, logits of the same
+    shape and a cache with the JAX cache's leaf names, shapes and dtypes
+    (``tests/test_torch_decode.py`` holds their values). The
     ``forward_extra`` case (it raised before the families were ported; the
     id is kept): a dense forward ignores ``extra``, as the JAX package's
-    does."""
-    _, tcfg, _, tp, batch = _model_inputs("smollm-360m")
+    does. ``forward_remat``: ``forward(remat=True)`` in train mode raises,
+    naming ROADMAP.md queue 1's item that brings it."""
+    jcfg, tcfg, jp, tp, batch = _model_inputs("smollm-360m")
     toks = _t(batch["tokens"])
     if entry == "forward_extra":
         plain = t_models.forward(tp, toks, tcfg)
@@ -340,14 +354,31 @@ def test_serving_entry_points_raise(entry):
             got = t_models.forward(tp, toks, tcfg, extra=extra)
             assert all(torch.equal(a, b) for a, b in zip(got, plain))
         return
-    calls = {
-        "prefill": lambda: t_models.prefill(tp, toks, tcfg),
-        "decode_step": lambda: t_models.decode_step(tp, None, toks[:, 0], 0, tcfg),
-        "init_cache": lambda: t_models.init_cache(tcfg, 2, 16),
-        "forward_prefill": lambda: t_models.forward(tp, toks, tcfg, mode="prefill"),
-    }
-    with pytest.raises(NotImplementedError, match="The model zoo"):
-        calls[entry]()
+    if entry == "forward_remat":
+        with pytest.raises(NotImplementedError,
+                           match=r"Recomputing forward \(remat=\)"):
+            t_models.forward(tp, toks, tcfg, remat=True)
+        _, c = t_models.forward(tp, toks, tcfg, mode="prefill", remat=True)[1:]
+        assert sorted(c) == ["b0/mix/k", "b0/mix/v"]  # ignored outside train
+        return
+    V, (B, S) = jcfg.vocab_size, batch["tokens"].shape
+    if entry == "init_cache":
+        got = t_models.init_cache(tcfg, B, 16, device="cpu")
+        assert _shapes(got) == _shapes(j_tf.init_cache(jcfg, B, 16))
+        return
+    _, want = j_tf.prefill(jp, batch["tokens"], jcfg, pad_to=S + 2)
+    if entry == "prefill":
+        logits, cache = t_models.prefill(tp, toks, tcfg, pad_to=S + 2)
+        assert logits.shape == (B, V) and _shapes(cache) == _shapes(want)
+    elif entry == "forward_prefill":
+        logits, aux, cache = t_models.forward(tp, toks, tcfg, mode="prefill",
+                                              pad_to=S + 2)
+        assert logits.shape == (B, S, V) and aux.shape == ()
+        assert _shapes(cache) == _shapes(want)
+    else:
+        cache = t_models.prefill(tp, toks, tcfg, pad_to=S + 2)[1]
+        logits, new = t_models.decode_step(tp, cache, toks[:, 0], S, tcfg)
+        assert logits.shape == (B, V) and _shapes(new) == _shapes(want)
 
 
 def test_models_exports_the_jax_packages_names():
