@@ -124,11 +124,21 @@ sources there (``nvcc``, one process per source, all started together, into
      d_model=512)`` with their launches (1, 2 or 4 an aggregation), a
      bitwise rerun and the plain backend, the MoE ones with every round's
      top-k routing equal in both backends; each prints rounds/s, capture
-     seconds a level, peak memory and the batch schedule's bytes; then the
-     zoo's decode entry points (``decode_path``): greedy decoding at batch 4
-     through ``prefill`` (pad_to = prompt + steps + 1) and ``decode_step``
-     with a device ``pos``, of SmolLM-360M at its published width and full
-     depth (32 layers; prompt 128, 32 steps), whisper-base (1500 frames;
+     seconds a level, peak memory and the batch schedule's bytes (every zoo
+     path at ``forward``'s default ``remat=True``: each layer group, and
+     each Mamba chunk, recomputed in the backward; whisper-base and jamba
+     also at ``remat=False``, a capture run and a timed rerun after the
+     default's, replays under the sync check, params and logs bitwise the
+     default's, with rounds/s and peak memory); then the recomputing
+     forward against ``remat=False`` (``remat_path``): one unit's
+     ``vmap(grad)`` over the 17 workers of SmolLM-360M (8 layers),
+     whisper-base and the five reduced archs, remat=False, True, True,
+     False, every gradient bitwise the first's, with each run's ms and
+     peak memory; then the zoo's decode entry points (``decode_path``):
+     greedy decoding at batch 4 through ``prefill`` (pad_to = prompt +
+     steps + 1) and ``decode_step`` with a device ``pos``, of SmolLM-360M
+     at its published width and full depth (32 layers; prompt 128, 32
+     steps), whisper-base (1500 frames;
      prompt 64, 32 steps) and rwkv6-1.6b (24 layers, d_model 2048; prompt
      64, 16 steps) at theirs, and llama-3.2-vision, qwen2-moe, arctic and
      jamba at ``get_reduced_config(arch, d_model=512)`` (prompt 32, 8
@@ -157,6 +167,7 @@ and the exit code is non-zero; so is it without a CUDA card.
 import contextlib
 import dataclasses
 import gc
+import inspect
 import io
 import json
 import re
@@ -1850,6 +1861,8 @@ MOE_ARCHS = ("qwen2-moe-a2.7b", "arctic-480b")
 TREE_LAUNCHES = {ZOO_ARCH: 1, WHISPER: 2, "llama-3.2-vision-90b": 2, "qwen2-moe-a2.7b": 1,
                  "arctic-480b": 1, "rwkv6-1.6b": 1, "jamba-1.5-large-398b": 4}
 WHISPER_TIMED_RUNS = 1  # the rerun alone: 20 s a run at full size
+# zoo_run also runs these at remat=False, in turns with remat=True
+REMAT_COMPILED = (WHISPER, "jamba-1.5-large-398b")
 
 
 @contextlib.contextmanager
@@ -1902,7 +1915,7 @@ def schedule_bytes(scan_fn):
 
 
 def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
-            serve=False):
+            serve=False, remat_pair=False):
     """DynaBRO over the model ``cfg`` (seq_len 128, one sequence a unit,
     m=17, 8 Byzantine under sign_flip and Periodic(4), CWTM at trim 8,
     ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05),
@@ -1918,9 +1931,11 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
     both backends (recorded eagerly at each round's starting params, read
     through ``eval_fn`` after every round), a differing round failing with
     its round and its least gap; with ``serve``, ``zoo_serve`` on the
-    kernel run's scan_fn. Prints, as the ``phase`` row, rounds/s (runs
-    after the first), each level's warm-up and capture seconds, the peak
-    memory and the batch schedule's bytes. Returns the kernel run's launch
+    kernel run's scan_fn; with ``remat_pair``, ``remat_compiled`` after the
+    kernel runs (``forward``'s default, remat=True, is the kernel run).
+    Prints, as the ``phase`` row, rounds/s (runs after the first), each
+    level's warm-up and capture seconds, the peak memory and the batch
+    schedule's bytes. Returns the kernel run's launch
     counts, and with ``serve`` the served rounds' as well."""
     gc.collect()
     torch.cuda.empty_cache()
@@ -1972,6 +1987,8 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
     del scan_fn
     gc.collect()
     torch.cuda.empty_cache()
+    remat_false = (remat_compiled(dev, arch, cfg, task, p1, l1, launches)
+                   if remat_pair else None)
 
     loss_mean = mean_launches = mean_s = None
     if mean_check:
@@ -2009,7 +2026,8 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
     per_tree = TREE_LAUNCHES[arch]
     assert per_tree == -(-len(p1) // fused.MAX_LEAVES), (arch, len(p1))
     expected = per_tree * sum(3 if 1 <= j <= j_max else 1 for j in levels)
-    row = {"phase": phase, "arch": arch, "family": cfg.family,
+    row = {"phase": phase, "arch": arch, "family": cfg.family, "remat":
+           inspect.signature(zoo_tf.forward).parameters["remat"].default,
            "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
            "encoder_layers": cfg.n_encoder_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
@@ -2037,7 +2055,8 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
            "plain_rounds_per_s": ZOO_T / ref_s,
            "schedule_bytes": sched_bytes, "schedule_extra_bytes": extra_bytes,
            "peak_allocated_gb": peak_gb, "peak_reserved_gb": reserved_gb,
-           "device_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
+           "device_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9,
+           "remat_false_run": remat_false}
     emit(row)
     assert len(modes) == len(modes2) == ZOO_T, (arch, len(modes), len(modes2))
     assert row["replays_under_sync_error"] == 2 * ZOO_T, row
@@ -2071,14 +2090,161 @@ def zoo_families_path(dev):
     phase = "zoo_families_path"
     out = {f"zoo {WHISPER}": zoo_run(
         dev, WHISPER, get_config(WHISPER), phase=phase,
-        timed_runs=WHISPER_TIMED_RUNS, mean_check=True)}
+        timed_runs=WHISPER_TIMED_RUNS, mean_check=True, remat_pair=True)}
     for arch in REDUCED_ARCHS:
         cfg = get_reduced_config(arch, d_model=REDUCED_D)
-        out[f"zoo {arch}"] = zoo_run(dev, arch, cfg, phase=phase)
+        out[f"zoo {arch}"] = zoo_run(dev, arch, cfg, phase=phase,
+                                     remat_pair=arch in REMAT_COMPILED)
     return out
 
 
-# ------------------------------------------- 9c. the decode entry points
+# ------------------------------------------- 9c. the recomputing forward
+
+def plain_zoo_loss(params, batch, cfg):
+    """``loss_fn``'s lines over ``forward(remat=False)``: the un-recomputed
+    model that ``remat_path`` holds the default against."""
+    logits, aux = zoo_tf.forward(params, batch["tokens"], cfg,
+                                 extra=batch.get("extra"), remat=False)
+    labels = batch["labels"].to(torch.int64)
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - gold).mean() + cfg.router_aux_weight * aux
+
+
+def remat_grad_fns(cfg):
+    """{remat: a unit's gradient}: True the zoo task's own (``loss_fn``,
+    ``forward``'s default), False over ``plain_zoo_loss``."""
+    return {True: lambda p, b: torch.func.grad(
+                lambda q: zoo_loss(q, b, cfg))(p),
+            False: lambda p, b: torch.func.grad(
+                lambda q: plain_zoo_loss(q, b, cfg))(p)}
+
+
+def peak_gb(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 1e9,
+            torch.cuda.max_memory_reserved(dev) / 1e9)
+
+
+def fresh_peak(dev):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def leaves_differing(got, ref, tag):
+    """{leaf (tag): its largest |difference|} of the card tensors ``got``
+    not bitwise the host tensors ``ref``."""
+    out = {}
+    for k, v in got.items():
+        want = ref[k].to(v.device)
+        if not torch.equal(v, want):
+            out[f"{k} ({tag})"] = float((v - want).abs().max())
+    return out
+
+
+def remat_unit(dev, arch, cfg, task):
+    """One unit's ``vmap(grad)`` over the 17 workers (round 0's first unit
+    of ``task``'s sampler, as ``_stream_levels`` takes it) with remat=False,
+    True, True, False: each run's ms and peak GB, and every gradient bitwise
+    the first run's (held in pinned host memory). A leaf that differs fails
+    the phase with its name and largest difference."""
+    unit = tree_map(lambda l: l.select(1, 0), task.make_sampler(M)(0, 1))
+    w0 = tree_map(lambda l: l[0], unit)
+    same_loss = torch.equal(zoo_loss(task.params0, w0, cfg),
+                            plain_zoo_loss(task.params0, w0, cfg))
+    fns = {flag: torch.func.vmap(fn, in_dims=(None, 0))
+           for flag, fn in remat_grad_fns(cfg).items()}
+    runs, ref, differ = [], None, {}
+    for flag in (False, True, True, False):
+        fresh_peak(dev)
+        g, s = timed(lambda: fns[flag](task.params0, unit))
+        alloc, reserved = peak_gb(dev)
+        runs.append({"remat": flag, "ms": s * 1e3, "peak_allocated_gb": alloc,
+                     "peak_reserved_gb": reserved})
+        if ref is None:  # pinned: a leaf crosses back in a fraction of a s
+            ref = {k: torch.empty(v.shape, dtype=v.dtype,
+                                  pin_memory=True).copy_(v)
+                   for k, v in g.items()}
+        else:
+            differ.update(leaves_differing(g, ref, f"remat={flag}"))
+        del g
+    del ref
+    row = {"phase": "remat_path", "arch": arch, "layers": cfg.n_layers,
+           "of_layers": get_config(arch).n_layers, "d_model": cfg.d_model,
+           "params": sum(v.numel() for v in task.params0.values()),
+           "m": M, "seq_len": ZOO_SEQ, "unit_batch": 1,
+           "gradient_gb": M * sum(v.numel() * 4 for v in task.params0.values())
+           / 1e9, "runs": runs, "bitwise": not differ, "differ": differ,
+           "same_loss": same_loss}
+    emit(row)
+    assert same_loss, f"{arch}: plain_zoo_loss is not loss_fn's value"
+    assert not differ, f"{arch}: remat=True not bitwise remat=False: {differ}"
+
+
+def remat_compiled(dev, arch, cfg, task, params, logs, launches):
+    """``zoo_run``'s setting through ``run_dynabro_scan(microbatch=True)``
+    with the remat=False gradient on a fresh scan_fn, in turns with
+    ``zoo_run``'s kernel runs (remat=True): a first run (its captures
+    included) and a timed rerun with the graphs kept, every round a replay
+    under the sync check, the same ``cw_reduce`` launches, params and logs
+    bitwise the remat=True run's (``params``, ``logs``). Returns its
+    rounds/s, seconds and peak GB (over both runs)."""
+    grad_fn = remat_grad_fns(cfg)[False]
+    dcfg = zoo_dyn_cfg()
+    sampler = task.make_sampler(M)
+    scan_fn = make_dynabro_scan_fn(grad_fn, dcfg, sgd(0.05), microbatch=True)
+
+    def run():
+        sw = get_switcher("periodic", M, n_byz=N_BYZ, K=4)
+        return run_dynabro_scan(grad_fn, task.params0, sgd(0.05), dcfg, sw,
+                                sampler, ZOO_T, seed=0, scan_fn=scan_fn,
+                                microbatch=True)
+
+    fresh_peak(dev)
+    reset_launches()
+    with watch_replays() as modes:
+        (p, l_false, _), first_s = timed(run)
+        false_launches = {k: v for k, v in LAUNCHES.items() if v}
+        (p2, _, _), run_s = timed(run)
+    alloc, reserved = peak_gb(dev)
+    out = {"rounds_per_s": ZOO_T / run_s, "first_run_s": first_s,
+           "run_s": run_s, "peak_allocated_gb": alloc,
+           "peak_reserved_gb": reserved, "replays": len(modes),
+           "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR),
+           "launches": false_launches, "rerun_bitwise": bitwise(p, p2),
+           "params_bitwise_remat_true": bitwise(p, params),
+           "logs_equal_remat_true": [vars(x) for x in l_false]
+           == [vars(x) for x in logs]}
+    del scan_fn, p, p2
+    fresh_peak(dev)
+    assert out["replays"] == out["replays_under_sync_error"] == 2 * ZOO_T, out
+    assert false_launches == launches and out["rerun_bitwise"], (arch, out)
+    assert out["params_bitwise_remat_true"] and out["logs_equal_remat_true"], \
+        f"{arch}: the compiled remat=False run differs from remat=True: {out}"
+    return out
+
+
+def remat_path(dev):
+    """``remat_unit`` for SmolLM-360M (8 of 32 layers, ``zoo_config``),
+    whisper-base at its published width and depth and the five reduced
+    archs of ``zoo_families_path`` (d_model 512); the compiled runs of
+    whisper-base and jamba at remat=False are ``zoo_run``'s
+    (``remat_pair``)."""
+    t0 = time.perf_counter()
+    models = [(ZOO_ARCH, zoo_config()), (WHISPER, get_config(WHISPER))] + [
+        (a, get_reduced_config(a, d_model=REDUCED_D)) for a in REDUCED_ARCHS]
+    for arch, cfg in models:
+        task = task_for_config(cfg, seq_len=ZOO_SEQ, unit_batch=1, seed=0,
+                               device=dev)
+        remat_unit(dev, arch, cfg, task)
+        del task
+        fresh_peak(dev)
+    emit({"phase": "remat_path", "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------- 9d. the decode entry points
 
 DECODE_BATCH = 4
 # (arch, at its published width and depth?, prompt tokens, decode steps)
@@ -2629,6 +2795,7 @@ def main():
         by_path[f"halving {grid}"] = halving_path(task, grid)
     by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
     by_path.update(zoo_families_path(dev))
+    remat_path(dev)
     t_decode = time.perf_counter()
     decode_path(dev, smi)
     emit({"phase": "decode_path", "seconds": time.perf_counter() - t_decode})

@@ -1,7 +1,8 @@
 """Primitive layers: norms (and RWKV's per-head groupnorm), RoPE, chunked
 (online-softmax) attention, single-token attention against a KV cache,
 MLPs; the port of the JAX package's ``models/layers.py``, function for
-function.
+function; and ``recompute_vjp``, the backward of the port's recomputing
+``autograd.Function``s (the JAX package's ``jax.checkpoint``).
 
 Attention is the JAX package's online-softmax loop over KV chunks (and over
 query chunks), written as Python loops over plain tensor code: no library
@@ -200,3 +201,21 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     if "b2" in p:
         out = out + p["b2"]
     return out
+
+
+# ---------------------------------------------------------------- recompute
+
+
+def recompute_vjp(fn, inputs, cotangents):
+    """The vector-Jacobian product of ``fn`` at ``inputs`` (a tuple of
+    tensors) against ``cotangents`` (one a tensor ``fn`` returns), with
+    ``fn`` run again: the backward of a Function that keeps only its
+    inputs. Call it as the backward finds the grad mode, which autograd sets
+    to its ``create_graph``: the inner backward then picks the derivative
+    formulas the outer one does (some ops, ``silu`` among them, have a
+    fused one and a differentiable one), so the gradients are bitwise those
+    of ``fn`` differentiated in place. Everything is detached from the
+    outer graph first, so with ``create_graph=True`` (``torch.func.grad``)
+    nothing of the recompute is recorded for a second derivative."""
+    _, vjp = torch.func.vjp(fn, *(t.detach() for t in inputs))
+    return vjp(tuple(t.detach() for t in cotangents))

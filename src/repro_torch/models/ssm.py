@@ -6,7 +6,10 @@ the prefill cache) or one decode step against its cache.
 Mamba's selective scan runs over sequence chunks carrying the SSM state,
 with a log-depth (Hillis-Steele) prefix scan inside each chunk. The JAX
 package's ``associative_scan`` pairs the elements in another tree, so the
-two agree to float32 rounding, not bitwise. The causal convolution is k
+two agree to float32 rounding, not bitwise. Each chunk is recomputed in the
+backward, as the JAX package's ``jax.checkpoint`` of the chunk body does:
+only the chunk's inputs and its incoming state are kept, not its (Bt,
+chunk, di, ds) temporaries. The causal convolution is k
 shifted multiply-adds, not ``F.conv1d``: a card's convolution backward is
 not bitwise on rerun unless deterministic mode is forced, and the compiled
 driver's contract is bitwise reruns. RWKV's wkv recurrence is sequential
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import group_norm_heads
+from repro_torch.models.layers import group_norm_heads, recompute_vjp
 
 F32 = torch.float32
 
@@ -48,11 +51,47 @@ def _prefix_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def selective_scan(x, delta, A, B, C, D, h0=None, chunk: int = 256):
-    """h_t = exp(dt*A) h_{t-1} + dt*B_t*x_t ; y_t = C_t . h_t + D*x_t.
+def _chunk_body(h, xc, dt, Bc, Cc, A, D, out_dtype):
+    """One chunk of ``selective_scan`` from the state ``h`` (Bt, di, ds),
+    in float32. Returns (the chunk's last state, y (Bt, c, di) in
+    ``out_dtype``)."""
+    xc, dt, Bc, Cc = (t.to(F32) for t in (xc, dt, Bc, Cc))
+    a = torch.exp(dt[..., None] * A[None, None])  # (Bt, c, di, ds)
+    b = (dt * xc)[..., None] * Bc[:, :, None, :]
+    ca, cb = _prefix_scan(a, b)
+    h_all = ca * h[:, None] + cb  # (Bt, c, di, ds)
+    y = (torch.einsum("bcds,bcs->bcd", h_all, Cc)
+         + D[None, None] * xc).to(out_dtype)
+    return h_all[:, -1], y
 
-    x, delta: (Bt, L, di); A: (di, ds); B, C: (Bt, L, ds); D: (di,).
-    Returns (y (Bt,L,di), h_last (Bt,di,ds))."""
+
+class _Chunk(torch.autograd.Function):
+    """``_chunk_body`` that keeps only its inputs for the backward, which
+    runs the body again and takes its vector-Jacobian product: the same ops
+    on the same values, so the gradients are bitwise those of the body
+    differentiated directly."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(h, xc, dt, Bc, Cc, A, D, out_dtype):
+        h_last, y = _chunk_body(h, xc, dt, Bc, Cc, A, D, out_dtype)
+        return h_last.clone(), y  # not a view that keeps h_all alive
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:7])
+        ctx.out_dtype = inputs[7]
+
+    @staticmethod
+    def backward(ctx, dh, dy):
+        return recompute_vjp(lambda *a: _chunk_body(*a, ctx.out_dtype),
+                             ctx.saved_tensors, (dh, dy)) + (None,)
+
+
+def _scan_chunks(body, x, delta, A, B, C, D, h0, chunk):
+    """``selective_scan`` with ``body(h, xc, dt, Bc, Cc, A, D, dtype)`` a
+    chunk."""
     Bt, L, di = x.shape
     ds = A.shape[1]
     chunk = min(chunk, L)
@@ -60,15 +99,19 @@ def selective_scan(x, delta, A, B, C, D, h0=None, chunk: int = 256):
          if h0 is None else h0)
     ys = []
     for c0 in range(0, L, chunk):
-        xc, dt, Bc, Cc = (t[:, c0:c0 + chunk].to(F32) for t in (x, delta, B, C))
-        a = torch.exp(dt[..., None] * A[None, None])  # (Bt, c, di, ds)
-        b = (dt * xc)[..., None] * Bc[:, :, None, :]
-        ca, cb = _prefix_scan(a, b)
-        h_all = ca * h[:, None] + cb  # (Bt, c, di, ds)
-        ys.append((torch.einsum("bcds,bcs->bcd", h_all, Cc)
-                   + D[None, None] * xc).to(x.dtype))
-        h = h_all[:, -1]
+        h, y = body(h, *(t[:, c0:c0 + chunk] for t in (x, delta, B, C)), A, D,
+                    x.dtype)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def selective_scan(x, delta, A, B, C, D, h0=None, chunk: int = 256):
+    """h_t = exp(dt*A) h_{t-1} + dt*B_t*x_t ; y_t = C_t . h_t + D*x_t.
+
+    x, delta: (Bt, L, di); A: (di, ds); B, C: (Bt, L, ds); D: (di,).
+    Returns (y (Bt,L,di), h_last (Bt,di,ds)). Each chunk is recomputed in
+    the backward (``_Chunk``)."""
+    return _scan_chunks(_Chunk.apply, x, delta, A, B, C, D, h0, chunk)
 
 
 def selective_step(x, delta, A, B, C, D, h):

@@ -33,9 +33,13 @@ package, whose windowed prefill cache (the last ``sliding_window`` keys in
 slots 0..W-1) agrees with that ring only when the prompt's length is a
 multiple of W; the port keeps that layout (ROADMAP.md §3).
 
-``forward(remat=True)`` in train mode, the JAX package's default, raises
-``NotImplementedError`` naming ROADMAP.md queue 1's item that brings it;
-the port's default is ``remat=False``.
+``forward(remat=True)``, the default as in the JAX package, recomputes each
+layer group in train mode: a ``torch.autograd.Function`` (``_Group``) keeps
+the group's input, what its cross-attention reads and its parameter slices,
+and its backward runs the group again under ``torch.func.vjp``. It runs
+under ``torch.func.vmap(torch.func.grad(...))`` and in a captured CUDA
+graph, and its gradients equal ``remat=False``'s bitwise. The audio encoder
+is not recomputed, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,14 +54,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
-    apply_norm, apply_rope, chunked_attention, decode_attention, mlp, rms_norm,
-    rope_angles,
+    apply_norm, apply_rope, chunked_attention, decode_attention, mlp,
+    recompute_vjp, rms_norm, rope_angles,
 )
 from repro_torch.models.moe import moe_ffn
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
-REMAT_ITEM = "Recomputing forward (remat=)"  # ROADMAP.md queue 1's item
 DEC_POS = 32768  # rows of the audio decoder's learned position table
 
 
@@ -284,9 +287,12 @@ def _attn_apply(x, p: Params, cfg: ModelConfig, *, cross=False, kv_src=None,
     if cross and mode == "decode":
         out = decode_attention(q, cache["k"], cache["v"])
         return x + out.reshape(B, S, H * hd) @ p["wo"], cache
-    src = kv_src if cross else h
-    k = src @ p["wk"]
-    v = src @ p["wv"]
+    # ``_Group`` hands a cross-attention a (k source, v source) pair: one
+    # tensor each, so that each use's gradient stays apart
+    k_src, v_src = ((kv_src if isinstance(kv_src, tuple) else (kv_src, kv_src))
+                    if cross else (h, h))
+    k = k_src @ p["wk"]
+    v = v_src @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, -1, KV, hd)
@@ -448,9 +454,76 @@ def _kv_src(params: Params, cfg: ModelConfig, extra: dict):
     return None
 
 
+def _reads_kv(cfg: ModelConfig, mixer: str) -> bool:
+    """Whether a layer's cross-attention reads ``kv_src``: the VLM's
+    cross-attention layers and every layer of the audio decoder."""
+    return mixer == "cross_attn" or (mixer == "attn" and cfg.family == "audio")
+
+
+def _group(x, gp: Params, cfg: ModelConfig, kv_src, *, mode="train",
+           pad_to=0):
+    """One layer group: its layers in pattern order, ``gp`` the group's
+    leaves keyed "b{i}/…". ``kv_src`` is what cross-attention reads (None,
+    or a tensor), or a list of one (k source, v source) pair a layer that
+    reads it (``_Group``). Returns (x, the group's router aux, its cache
+    leaves)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    cache = {}
+    pairs = iter(kv_src) if isinstance(kv_src, list) else None
+    for i, (mixer, mk) in enumerate(cfg.pattern()):
+        kv = next(pairs) if pairs is not None and _reads_kv(cfg, mixer) \
+            else kv_src
+        x, a, c = _block_apply(x, _sub(gp, f"b{i}/"), cfg, mixer, mk, kv,
+                               mode=mode, pad_to=pad_to)
+        if a is not None:
+            aux = aux + a
+        cache.update(_under(f"b{i}/", c))
+    return x, aux, cache
+
+
+def _group_fn(cfg: ModelConfig, names: Tuple[str, ...], n_kv: int, x, *rest):
+    """``_group`` in train mode over positional tensors: x, ``n_kv`` copies
+    of ``kv_src`` in reverse order of use (a reading layer's k source, then
+    its v source), then the group's leaves in the order of ``names``.
+    Returns (x, aux)."""
+    uses = rest[:n_kv][::-1]
+    pairs = [(uses[i], uses[i + 1]) for i in range(0, n_kv, 2)]
+    gp = dict(zip(names, rest[n_kv:]))
+    x, aux, _ = _group(x, gp, cfg, pairs or None)
+    return x, aux
+
+
+class _Group(torch.autograd.Function):
+    """A layer group recomputed in the backward, the port of the JAX
+    package's ``jax.checkpoint(group_body)``: it keeps only its inputs (x,
+    the kv_src copies and the group's parameter slices, views of the
+    stacked leaves) and its backward runs ``_group_fn`` again under
+    ``torch.func.vjp``. The same ops run on the same values, and the
+    autograd engine sums a tensor's gradients latest use first, and a
+    Function's input gradients in input order: with one kv_src copy a use,
+    in reverse order of use, kv_src's gradient is summed over the groups in
+    the order of the un-recomputed graph, bitwise."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(cfg, names, n_kv, x, *rest):
+        return _group_fn(cfg, names, n_kv, x, *rest)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[:3]
+        ctx.save_for_backward(*inputs[3:])
+
+    @staticmethod
+    def backward(ctx, dx, daux):
+        return (None, None, None) + recompute_vjp(
+            lambda *a: _group_fn(*ctx.args, *a), ctx.saved_tensors, (dx, daux))
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             extra: Optional[dict] = None, mode: str = "train",
-            remat: bool = False, pad_to: int = 0):
+            remat: bool = True, pad_to: int = 0):
     """Full causal forward of (B, S) tokens, ``extra`` the audio family's
     {"frames": (B, encoder_seq, D)} or the VLM's {"patches": (B,
     n_image_tokens, D)} (ignored by the other families). Returns (logits (B,
@@ -458,29 +531,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (``mode="prefill"``; ``pad_to`` as in ``prefill``), aux the routers'
     load-balance loss summed over the layer groups (0 without a router).
 
-    ``remat=True`` in train mode raises ``NotImplementedError`` (ROADMAP.md
-    queue 1, "Recomputing forward (remat=)"): the default is False here,
-    where the JAX package's is True, until that item. Outside train mode
+    ``remat=True`` (the default, as in the JAX package) recomputes each
+    layer group in the backward (``_Group``) in train mode, with the same
+    values and gradients, bitwise, as ``remat=False``; outside train mode
     ``remat`` changes nothing, as in the JAX package."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode {mode!r} is not 'train' or "
                          "'prefill' (decode_step runs one decode step)")
-    if remat and mode == "train":
-        raise NotImplementedError(
-            "forward(remat=True) is not ported to repro_torch yet (ROADMAP.md "
-            f"queue 1, {REMAT_ITEM!r}); pass remat=False")
     x = _embed_tokens(params, tokens, cfg)
     kv_src = _kv_src(params, cfg, extra or {})
+    recompute = remat and mode == "train"
+    if recompute:
+        n_kv = 2 * sum(_reads_kv(cfg, mixer) for mixer, _ in cfg.pattern())
+        kv = (kv_src,) * n_kv if kv_src is not None else ()
     auxs, caches = [], []
     for gp in _layers(params, "blocks/", cfg.n_groups):
-        aux = torch.zeros((), dtype=F32, device=x.device)
-        cache = {}
-        for i, (mixer, mk) in enumerate(cfg.pattern()):
-            x, a, c = _block_apply(x, _sub(gp, f"b{i}/"), cfg, mixer, mk,
-                                   kv_src, mode=mode, pad_to=pad_to)
-            if a is not None:
-                aux = aux + a
-            cache.update(_under(f"b{i}/", c))
+        if recompute:
+            names = tuple(sorted(gp))
+            x, aux = _Group.apply(cfg, names, len(kv), x, *kv,
+                                  *(gp[k] for k in names))
+            cache = {}
+        else:
+            x, aux, cache = _group(x, gp, cfg, kv_src, mode=mode,
+                                   pad_to=pad_to)
         auxs.append(aux)
         caches.append(cache)
     logits = _unembed(params, x, cfg)

@@ -1561,3 +1561,108 @@ def test_decode_on_card_against_cpu(ieee_f32, arch):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=atol * max(1.0, float(want.abs().max())))
+
+
+# ------------------------------------------------- the recomputing forward
+
+
+def _replays_equal_eager(fn, *args):
+    """``fn(*args)`` eagerly, then captured in a CUDA graph (warmed up on a
+    side stream) and replayed twice: returns (eager, replays) as leaf
+    lists."""
+    leaves = torch.utils._pytree.tree_leaves
+    eager = leaves(fn(*args))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = leaves(fn(*args))
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([o.clone() for o in out])
+    return eager, replays
+
+
+def test_chunk_recompute_bitwise_and_captured_on_card(ieee_f32):
+    """``selective_scan`` (each chunk a recomputing ``_Chunk``) under
+    ``vmap(grad)`` over 17 workers, 40 steps in chunks of 16 (the last one
+    short), with a start state: every input's gradient bitwise the
+    un-recomputed scan's on the card, and a captured CUDA graph of it
+    replays those bits."""
+    from repro_torch.models import ssm
+    dev = ieee_f32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    m, Bt, L, di, ds = 17, 2, 40, 64, 8
+    x = torch.randn(m, Bt, L, di, generator=gen, device=dev)
+    delta = torch.nn.functional.softplus(
+        torch.randn(m, Bt, L, di, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(di, ds, generator=gen, device=dev) / 2)
+    B = torch.randn(m, Bt, L, ds, generator=gen, device=dev)
+    C = torch.randn(m, Bt, L, ds, generator=gen, device=dev)
+    D = torch.randn(di, generator=gen, device=dev)
+    h0 = torch.randn(m, Bt, di, ds, generator=gen, device=dev)
+    w = torch.randn(Bt, L, di, generator=gen, device=dev)
+
+    def grads(body):
+        def loss(x, delta, A, B, C, D, h0):
+            y, h = ssm._scan_chunks(body, x, delta, A, B, C, D, h0, 16)
+            return torch.sum(y * w) + h.square().sum()
+        return torch.func.vmap(torch.func.grad(loss, argnums=tuple(range(7))),
+                               in_dims=(0, 0, None, 0, 0, None, 0))
+
+    args = (x, delta, A, B, C, D, h0)
+    want = grads(ssm._chunk_body)(*args)
+    eager, replays = _replays_equal_eager(grads(ssm._Chunk.apply), *args)
+    for a, b, c, d in zip(want, eager, *replays):
+        assert torch.equal(a, b) and torch.equal(b, c) and torch.equal(c, d)
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-base",
+                                  "qwen2-moe-a2.7b"])
+def test_group_recompute_bitwise_and_captured_on_card(ieee_f32, arch):
+    """One unit's ``vmap(grad(loss_fn))`` over 17 workers of the reduced
+    arch (d_model 64; jamba nests the chunk recompute, whisper's decoder
+    reads the encoder's output, qwen2-moe routes with capacity and adds
+    the router aux): ``forward(remat=True)``'s gradients bitwise
+    ``remat=False``'s on the card, and a captured CUDA graph of the
+    recomputing path replays those bits."""
+    import functools
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tf
+    dev = ieee_f32
+    cfg = get_reduced_config(arch, d_model=64)
+    params = init_params(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (17, 2, 16), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 2)}
+    if cfg.family in ("audio", "vlm"):
+        name, n = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                   else ("patches", cfg.n_image_tokens))
+        batch["extra"] = {name: torch.randn(17, 2, n, 64, generator=gen,
+                                            device=dev)}
+
+    def worker_grads(remat):
+        def loss(p, b):
+            orig = tf.forward
+            tf.forward = functools.partial(orig, remat=remat)
+            try:
+                return tf.loss_fn(p, b, cfg)
+            finally:
+                tf.forward = orig
+        return torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))
+
+    want = worker_grads(False)(params, batch)
+    eager, replays = _replays_equal_eager(worker_grads(True), params, batch)
+    leaves = torch.utils._pytree.tree_leaves(want)
+    assert len(leaves) == len(eager)
+    for a, b, c, d in zip(leaves, eager, *replays):
+        assert torch.equal(a, b) and torch.equal(b, c) and torch.equal(c, d)
+        assert bool(torch.isfinite(a).all())

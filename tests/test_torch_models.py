@@ -344,8 +344,11 @@ def test_serving_entry_points_raise(entry):
     (``tests/test_torch_decode.py`` holds their values). The
     ``forward_extra`` case (it raised before the families were ported; the
     id is kept): a dense forward ignores ``extra``, as the JAX package's
-    does. ``forward_remat``: ``forward(remat=True)`` in train mode raises,
-    naming ROADMAP.md queue 1's item that brings it."""
+    does. ``forward_remat`` (it raised ``NotImplementedError`` before the
+    recompute was ported; the id is kept): ``forward(remat=True)`` runs in
+    train mode, its logits, aux and gradient bitwise remat=False's
+    (``tests/test_torch_remat.py`` holds every arch), and prefill mode
+    ignores ``remat``."""
     jcfg, tcfg, jp, tp, batch = _model_inputs("smollm-360m")
     toks = _t(batch["tokens"])
     if entry == "forward_extra":
@@ -355,11 +358,20 @@ def test_serving_entry_points_raise(entry):
             assert all(torch.equal(a, b) for a, b in zip(got, plain))
         return
     if entry == "forward_remat":
-        with pytest.raises(NotImplementedError,
-                           match=r"Recomputing forward \(remat=\)"):
-            t_models.forward(tp, toks, tcfg, remat=True)
-        _, c = t_models.forward(tp, toks, tcfg, mode="prefill", remat=True)[1:]
-        assert sorted(c) == ["b0/mix/k", "b0/mix/v"]  # ignored outside train
+        runs = [t_models.forward(tp, toks, tcfg, remat=r) for r in (True, False)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+        def grad_of(remat):
+            return torch.func.grad(lambda p: t_models.forward(
+                p, toks, tcfg, remat=remat)[0].square().mean())(tp)
+
+        g_r, g_0 = grad_of(True), grad_of(False)
+        assert all(torch.equal(g_r[k], g_0[k]) for k in g_0)
+        pre = [t_models.forward(tp, toks, tcfg, mode="prefill", remat=r)
+               for r in (True, False)]
+        assert sorted(pre[0][2]) == ["b0/mix/k", "b0/mix/v"]
+        assert all(torch.equal(a, b) for a, b in zip(pre[0][:2], pre[1][:2]))
+        assert all(torch.equal(pre[0][2][k], pre[1][2][k]) for k in pre[1][2])
         return
     V, (B, S) = jcfg.vocab_size, batch["tokens"].shape
     if entry == "init_cache":
