@@ -103,7 +103,20 @@ sources there (``nvcc``, one process per source, all started together, into
      ``Session.sweep`` of the surviving subset, each pruned cell to the
      sweep of the cells alive in its last segment stopped at its rung,
      every round a replay under the sync check; the captures at each rung
-     and lanes·rounds/s beside the full sweep's, in turns;
+     and lanes·rounds/s beside the full sweep's, in turns; then the
+     sharded drivers (``mesh_path``): ``make_worker_mesh(1)`` with CWTM and
+     GeoMed bitwise ``mesh=None`` with the same launches, and two gloo
+     ranks on the one card (this script with ``--mesh-rank``): CWTM,
+     GeoMed, NNM+CWTM and worker momentum on a 2-rank worker mesh at m=16
+     (7 Byzantine, trim 7), every round two graph replays under the sync
+     check with the worker gather between them, each rank's launches the
+     unsharded run's, the ranks' params bitwise equal, rank 0's logs equal
+     to the unsharded run's and its params within 32 units in the last
+     place of each leaf's largest value; grid 1's sweep on a (2, 1) lane
+     mesh, each lane bitwise; the m=16 CWTM, GeoMed and NNM+CWTM runs
+     through ``run_dynabro`` on the kernels and on the plain backend (equal
+     logs, params within 1e-6/1e-5); rounds/s of each beside the unsharded run's, and
+     the gathers and gather ms a run;
   9. trains DynaBRO over SmolLM-360M at its published width, 8 of its 32
      layers (``task_for_config``, ``run_dynabro_scan(microbatch=True)``:
      m=17, 8 Byzantine, sign_flip under Periodic(4), CWTM at trim 8, T=16,
@@ -194,13 +207,15 @@ from repro_torch import (  # noqa: E402
     MLMCConfig, ServeConfig, SimulatedWorkers, SweepSpec, Task, adagrad_norm,
     build_session, checkpoint_step, format_table, get_attack, get_switcher,
     latest_checkpoint, load_checkpoint, make_dynabro_scan_fn,
-    make_momentum_scan_fn, make_quadratic_task, make_task, run_dynabro,
+    make_lane_mesh, make_momentum_scan_fn, make_quadratic_task, make_task,
+    make_worker_mesh, run_dynabro,
     run_dynabro_scan, run_matrix, run_momentum, run_momentum_scan,
     save_checkpoint, scenario_grid, sgd, worker_payloads,
 )
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.core import robust_train as rt  # noqa: E402
+from repro_torch.core.sharded import GATHERS  # noqa: E402
 from repro_torch.data import classification as clf  # noqa: E402
 from repro_torch.serve import smoke as serve_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -222,7 +237,7 @@ DELTA = N_BYZ / M + 1e-3
 LEAF_SHAPES = [(M, 8192), (M, 1280), (M, 128), (M, 10)]  # w1, w2, b1, b2
 CHECK_M = (3, 8, 16, 17, 25, 32, 64)
 CHECK_D = (10, 50, 777, 2048, 8192, 9610)
-GEO_CHECK_M = (1, 2, 3, 17, 32, 64)
+GEO_CHECK_M = (1, 2, 3, 16, 17, 32, 64)  # 16: mesh_path's m
 GEO_CHECK_D = (10, 777, 8192, 9610)
 DIST_ATOL = 2e-6  # of max(largest distance, largest squared row norm)
 LIBRARIES = ("cw_reduce", "sqdist", "combine")
@@ -416,7 +431,7 @@ def check_tree_kernels(dev):
     n = 0
     for tree, widths in TREE_CHECKS.items():
         per_call = -(-len(widths) // fused.MAX_LEAVES)
-        for k, m in [(1, M), (M, M), (64, 64)]:
+        for k, m in [(1, M), (M, M), (16, 16), (64, 64)]:  # 16: mesh_path's
             x32 = [torch.randn(m, d, generator=gen) * 3.0 for d in widths]
             w = torch.rand(k, m, generator=gen).to(dev)
             for dtype in (torch.float32, torch.bfloat16):
@@ -1766,6 +1781,306 @@ def halving_path(task, grid):
     return launches
 
 
+# ------------------------------------------------- 8b. the worker meshes
+
+MESH_RANKS = 2  # gloo ranks on the one card: NCCL takes one rank a card
+MESH_M, MESH_BYZ = 16, 7  # m divisible by the ranks; trim 7
+MESH_DELTA = MESH_BYZ / MESH_M + 1e-3
+MESH_TIMEOUT_S = 300  # each rank's whole run, start-up included
+MESH_TIMED = 2  # sharded and unsharded reruns in turns, graphs kept
+# a 2-rank run's params against the unsharded run of the same setting, in
+# units in the last place of each leaf's largest |value|: a rank's
+# vmap(grad) over 8 workers rounds unlike the one over 16 at 1 and 4 units
+# a worker (cuBLAS picks another product); the sweep's lanes on a (2, 1)
+# lane mesh compute what they computed unsharded, bitwise (0)
+MESH_ULPS = 32
+MESH_LAUNCHES = {"cwtm": {"cw_reduce": 440},
+                 "geomed": EXPECTED_LAUNCHES["geomed"],
+                 "nnm+cwtm": EXPECTED_LAUNCHES["nnm+cwtm"],
+                 "momentum": {"cw_reduce": T}, "sweep grid1": {"cw_reduce": 440}}
+
+
+def ulps(a, b):
+    """The largest difference between two dicts of float32 tensors, in
+    units in the last place of the leaf's largest |value| in ``b``."""
+    def one(x, y):
+        top = y.abs().max()
+        return float((x - y).abs().max() / (torch.nextafter(top, top + 1) - top))
+    return max(one(a[k], b[k]) for k in a)
+
+
+# the m=16 runs' params against the plain backend's, as in geometry_path
+MESH_PLAIN = {"cwtm": 1e-6, "geomed": 1e-5, "nnm+cwtm": 1e-5}
+
+
+def mesh_plain(dev):
+    """The rules the ranks run, at m=16 through ``run_dynabro`` on the
+    kernels and on the plain backend, as ``geometry_path`` runs m=17: the
+    shapes the ranks give the kernels (K3-K6 with k = m = 16) held to their
+    plain versions, with equal round logs, params within ``MESH_PLAIN`` and
+    the kernels' launches the ranks' own."""
+    params0, grad_fn, sampler, _ = make_task(MESH_M, seed=0, device=dev)
+    rows = []
+    for rule, limit in MESH_PLAIN.items():
+        outs, launches = [], []
+        for backend in ("auto", "ref"):
+            cfg = dataclasses.replace(mesh_cfg(rule), agg_backend=backend)
+            reset_launches()
+            p, logs, _ = run_dynabro(
+                grad_fn, params0, sgd(0.1), cfg,
+                get_switcher("periodic", MESH_M, n_byz=MESH_BYZ, K=10),
+                sampler, T, seed=0)
+            outs.append((p, logs))
+            launches.append({k: v for k, v in LAUNCHES.items() if v})
+        (p, logs), (q, ref_logs) = outs
+        row = {"rule": rule, "launches": launches[0],
+               "plain_launches": launches[1],
+               "logs_equal_plain": ([vars(x) for x in logs]
+                                    == [vars(x) for x in ref_logs]),
+               "max_param_diff_vs_plain": max_diff(p, q), "limit": limit,
+               "finite": all(bool(torch.isfinite(v).all()) for v in p.values())}
+        rows.append(row)
+    emit({"phase": "mesh_path", "case": "plain backend", "T": T, "m": MESH_M,
+          "rows": rows})
+    for row in rows:
+        assert row["launches"] == MESH_LAUNCHES[row["rule"]], row
+        assert not row["plain_launches"], row
+        assert row["finite"] and row["logs_equal_plain"], row
+        assert row["max_param_diff_vs_plain"] <= row["limit"], row
+
+
+def one_device_mesh(task):
+    """``make_worker_mesh(1)`` on the Figure-1 setting (m=17) with CWTM and
+    GeoMed: params and logs bitwise ``mesh=None``'s with the same launches,
+    and rounds/s of both in turns (graphs kept)."""
+    params0, grad_fn, sampler, _ = task
+    by_rule = {}
+    for rule in ("cwtm", "geomed"):
+        cfg = fig1_cfg(rule)
+        meshes = {"mesh=None": None, "make_worker_mesh(1)": make_worker_mesh(1)}
+        fns = {k: make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1), mesh=mesh)
+               for k, mesh in meshes.items()}
+
+        def run(which):
+            return timed(lambda: run_dynabro_scan(
+                grad_fn, params0, sgd(0.1), cfg, periodic(), sampler, T,
+                seed=0, scan_fn=fns[which], mesh=meshes[which]))
+
+        outs, launches = {}, {}
+        for which in meshes:
+            reset_launches()
+            outs[which], _ = run(which)
+            launches[which] = {k: v for k, v in LAUNCHES.items() if v}
+        secs = {which: [] for which in meshes}
+        for which in list(meshes) * MESH_TIMED:
+            secs[which].append(run(which)[1])
+        (p0, l0, _), (p1, l1, _) = outs.values()
+        row = {"phase": "mesh_path", "case": f"one device {rule}", "T": T,
+               "m": M, "bitwise_equal": bitwise(p0, p1),
+               "logs_equal": [vars(x) for x in l0] == [vars(x) for x in l1],
+               "launches": launches,
+               "rounds_per_s": {k: [T / s for s in v] for k, v in secs.items()}}
+        emit(row)
+        assert row["bitwise_equal"] and row["logs_equal"], row
+        assert launches["mesh=None"] == launches["make_worker_mesh(1)"], row
+        by_rule[f"mesh1 {rule}"] = launches["make_worker_mesh(1)"]
+    return by_rule
+
+
+def mesh_cfg(rule, attack="sign_flip", kwargs=None):
+    return DynaBROConfig(
+        mlmc=MLMCConfig(T=T, m=MESH_M, V=5.0, kappa=1.0, j_cap=5),
+        aggregator=rule, delta=MESH_DELTA, attack=attack, attack_kwargs=kwargs)
+
+
+def mesh_driver(case, task, mesh):
+    """(sharded run, unsharded run, the sharded run's capture seconds) of
+    ``case`` on the m=16 setting, each run giving its lanes' [(params, logs
+    or None)]; momentum is ``momentum_path``'s setting."""
+    params0, grad_fn, sampler, _ = task
+    if case == "momentum":
+        cfg = mesh_cfg("cwtm", attack="shift", kwargs={"v": 1.0})
+        fns = {m: make_momentum_scan_fn(grad_fn, cfg, 0.1, 0.9, mesh=m)
+               for m in (mesh, None)}
+
+        def run(m):
+            p, _ = run_momentum_scan(
+                grad_fn, params0, cfg,
+                get_switcher("momentum_tailored", MESH_M, alpha=0.1), sampler,
+                T, lr=0.1, beta=0.9, scan_fn=fns[m], mesh=m)
+            return [(p, None)]
+    else:
+        cfg = mesh_cfg(case)
+        fns = {m: make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1), mesh=m)
+               for m in (mesh, None)}
+
+        def run(m):
+            p, logs, _ = run_dynabro_scan(
+                grad_fn, params0, sgd(0.1), cfg,
+                get_switcher("periodic", MESH_M, n_byz=MESH_BYZ, K=10),
+                sampler, T, seed=0, scan_fn=fns[m], mesh=m)
+            return [(p, logs)]
+    return (lambda: run(mesh), lambda: run(None),
+            lambda: fns[mesh].capture_seconds)
+
+
+def mesh_sweep(task, lane_mesh):
+    """(sharded, unsharded, the sharded run's capture seconds)
+    ``Session.sweep`` of grid 1 (8 CWTM lanes, m=17), the sharded one on
+    ``lane_mesh``."""
+    switchers, attacks, aggs, _ = sweep_grid("grid1")
+    sess = build_session(fig1_cfg("cwtm"), mlp_task(task), m=M, opt=sgd(0.1),
+                         seed=0)
+    spec = SweepSpec(switchers=tuple(switchers), attacks=tuple(attacks),
+                     aggregators=tuple(aggs))
+    return (lambda: sess.sweep(spec, T, lane_mesh=lane_mesh),
+            lambda: sess.sweep(spec, T),
+            lambda: next(f for k, f in sess._lane_fns.items()
+                         if lane_mesh in k).capture_seconds)
+
+
+def counted(fn):
+    """fn()'s result, and its seconds, launches, worker gathers, gather ms
+    and graph replays (those under the sync check)."""
+    reset_launches()
+    gathers, gather_s = GATHERS["gathers"], GATHERS["seconds"]
+    with watch_replays() as modes:
+        out, secs = timed(fn)
+    return out, {"seconds": secs, "rounds_per_s": T / secs,
+                 "launches": {k: v for k, v in LAUNCHES.items() if v},
+                 "gathers": GATHERS["gathers"] - gathers,
+                 "gather_ms": 1e3 * (GATHERS["seconds"] - gather_s),
+                 "replays": len(modes),
+                 "replays_under_sync_error": modes.count(SYNC_DEBUG_ERROR)}
+
+
+def mesh_runs(rank, case, sharded_run, plain_run, capture_seconds):
+    """``case`` sharded on every rank at once and unsharded on rank 0 while
+    the other ranks wait, then ``MESH_TIMED`` reruns of each in turns; the
+    row of this rank: its counts, whether every rank's lanes are bitwise
+    equal, and on rank 0 its lanes against the unsharded run's."""
+    barrier = torch.distributed.barrier
+    barrier()
+    out, sharded = counted(sharded_run)
+    barrier()
+    ref, unsharded = counted(plain_run) if rank == 0 else (None, None)
+    reruns = []
+    for _ in range(MESH_TIMED):
+        barrier()
+        s = counted(sharded_run)[1]
+        barrier()
+        u = counted(plain_run)[1] if rank == 0 else None
+        reruns.append({"sharded": s, "unsharded": u})
+    got = [None] * MESH_RANKS
+    torch.distributed.all_gather_object(
+        got, [{k: v.cpu() for k, v in p.items()} for p, _ in out])
+    row = {"case": case, "rank": rank, "sharded": sharded, "reruns": reruns,
+           "capture_s": {str(k): v for k, v in capture_seconds().items()},
+           "ranks_bitwise_equal": all(
+               len(g) == len(got[0]) and all(map(bitwise, g, got[0]))
+               for g in got)}
+    if rank == 0:
+        row.update(
+            unsharded=unsharded, lanes=len(out),
+            logs_equal=all([vars(x) for x in a or []]
+                           == [vars(x) for x in b or []]
+                           for (_, a), (_, b) in zip(out, ref)),
+            failsafe_ok=[sum(x.failsafe_ok for x in logs or [])
+                         for _, logs in out],
+            bitwise_lanes=sum(bitwise(p, q) for (p, _), (q, _) in zip(out, ref)),
+            max_param_diff=max(max_diff(p, q)
+                               for (p, _), (q, _) in zip(out, ref)),
+            max_ulps=max(ulps(p, q) for (p, _), (q, _) in zip(out, ref)),
+            finite=all(bool(torch.isfinite(v).all())
+                       for p, _ in out for v in p.values()))
+    return row
+
+
+def mesh_rank(rank, tmp):
+    """One rank of ``mesh_path``'s gloo group on the card: the drivers on a
+    2-rank worker mesh, then grid 1's sweep on a (2, 1) lane mesh. Writes
+    its rows to ``<tmp>/rank<rank>.json``."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=MESH_RANKS)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = make_worker_mesh(MESH_RANKS)
+        task = make_task(MESH_M, seed=0, device=dev)
+        rows = [mesh_runs(rank, case, *mesh_driver(case, task, mesh))
+                for case in ("cwtm", "geomed", "nnm+cwtm", "momentum")]
+        rows.append(mesh_runs(rank, "sweep grid1", *mesh_sweep(
+            make_task(M, seed=0, device=dev), make_lane_mesh(MESH_RANKS, 1))))
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(rows))
+
+
+def mesh_path(task):
+    """The sharded Mode A drivers on the card: ``one_device_mesh``, then
+    ``MESH_RANKS`` gloo ranks on the one card (``mesh_rank``, each a process
+    of this script), each rank's rows checked here: CWTM (K1), GeoMed (K4,
+    K6), NNM+CWTM (K3, K5) and momentum on a 2-rank worker mesh, at m=16
+    with 7 Byzantine (trim 7) under sign_flip and Periodic(10), T=150: every
+    round two graph replays under the sync check with one worker gather
+    between them; each rank's launches the unsharded run's; the ranks'
+    params bitwise equal; rank 0's round logs equal to the unsharded run's
+    and its params within ``MESH_ULPS``; and grid 1's sweep (K2) on a (2,
+    1) lane mesh, each lane bitwise the unsharded sweep's; then
+    ``mesh_plain``. Rounds/s of each run beside the unsharded one's, and
+    the gathers and gather ms a run."""
+    t0 = time.perf_counter()
+    by_path = one_device_mesh(task)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(r), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(MESH_RANKS)]
+        try:
+            logs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"mesh rank {r} failed:\n{log[-6000:]}"
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    for rows in zip(*ranks):
+        case, r0 = rows[0]["case"], rows[0]
+        sweep = case.startswith("sweep")
+        row = {"phase": "mesh_path", "case": case, "ranks": MESH_RANKS,
+               "T": T, "m": M if sweep else MESH_M,
+               **{k: v for k, v in r0.items() if k not in ("case", "rank")},
+               "other_ranks": [{k: r[k] for k in ("sharded", "reruns")}
+                               for r in rows[1:]],
+               "limit_ulps": 0 if sweep else MESH_ULPS}
+        emit(row)
+        want = MESH_LAUNCHES[case]
+        assert r0["unsharded"]["launches"] == want, (case, r0["unsharded"])
+        for r in rows:
+            assert r["ranks_bitwise_equal"], f"{case}: the ranks' params differ"
+            counts = [r["sharded"]] + [x["sharded"] for x in r["reruns"]]
+            for c in counts:
+                assert c["launches"] == want, (case, r["rank"], c["launches"])
+                # drivers: two graphs a round, a gather between them; the
+                # sweep's worker axis is 1: one graph a round, no gather
+                assert c["replays"] == c["replays_under_sync_error"] == (
+                    T if sweep else 2 * T), (case, c)
+                assert c["gathers"] == (0 if sweep else T), (case, c)
+        assert r0["finite"] and r0["logs_equal"], f"{case}: logs differ"
+        assert r0["max_ulps"] <= row["limit_ulps"], (
+            f"{case}: params differ by {r0['max_ulps']} ulps")
+        by_path[f"mesh {case}"] = r0["sharded"]["launches"]
+    mesh_plain(torch.device("cuda", 0))
+    emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 # ------------------------------------------------------------- 9. model zoo
 
 ZOO_TIMED_RUNS = 2  # the kernel path again, graphs kept, for rounds/s
@@ -2793,6 +3108,7 @@ def main():
     by_path["serve"] = serve_path(task)
     for grid in ("grid1", "grid2"):
         by_path[f"halving {grid}"] = halving_path(task, grid)
+    by_path.update(mesh_path(task))
     by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
     by_path.update(zoo_families_path(dev))
     remat_path(dev)
@@ -2867,4 +3183,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of mesh_path
+        mesh_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -22,7 +22,10 @@ through the compiled driver's ``microbatch=True`` streaming, and its decode
 entry points (``models.init_cache``, ``prefill``, ``decode_step``); the
 successive-halving sweep ``Session.sweep_halving``; and the aggregation
 service ``repro_torch.serve`` (a threaded server stepping a ``Session``
-from worker updates). Its names are re-exported here.
+from worker updates); and Mode A's multi-device drivers over
+``torch.distributed`` (``make_worker_mesh`` / ``make_lane_mesh``, the
+compiled drivers' ``mesh=`` and the sweeps' ``lane_mesh=``). Its names are
+re-exported here.
 """
 from repro_torch.api import (
     AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, Optimizer, RoundInputs,

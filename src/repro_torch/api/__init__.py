@@ -15,8 +15,10 @@ Quickstart::
     sched = sess.schedule(200)
     carry, info = sess.step(carry, sess.round_inputs(sched, 0))
 
-``make_lane_mesh`` / ``make_worker_mesh`` are not ported and raise
-``NotImplementedError``.
+``make_worker_mesh`` / ``make_lane_mesh`` build the meshes of the sharded
+drivers (``mesh=``, ``lane_mesh=``) over ``torch.distributed``: every rank
+of the default process group calls the same driver with the same
+arguments.
 """
 from repro_torch.api.session import (
     RoundInputs, RoundSchedule, Session, StepInfo, build_session,
@@ -24,7 +26,7 @@ from repro_torch.api.session import (
 from repro_torch.api.specs import AggSpec, AttackSpec, SweepSpec
 from repro_torch.core.mlmc import MLMCConfig
 from repro_torch.core.robust_train import (
-    DynaBROConfig, RoundLog, _refuse_unported, make_dynabro_scan_fn,
+    DynaBROConfig, RoundLog, make_dynabro_scan_fn,
     make_momentum_scan_fn, run_dynabro, run_dynabro_scan,
     run_dynabro_scan_sweep, run_momentum, run_momentum_scan,
 )
@@ -33,21 +35,10 @@ from repro_torch.core.scenarios import (
     run_scenario, scenario_grid,
 )
 from repro_torch.core.switching import Switcher, get_switcher
+from repro_torch.launch.mesh import make_lane_mesh, make_worker_mesh
 from repro_torch.optim.optimizers import (
     Optimizer, adagrad_norm, adam, momentum, sgd,
 )
-
-
-def make_worker_mesh(*args, **kwargs):
-    """The JAX package's worker mesh: not ported (ROADMAP.md queue 1,
-    'Multi-device')."""
-    _refuse_unported(mesh=True)
-
-
-def make_lane_mesh(*args, **kwargs):
-    """The JAX package's (lanes, workers) mesh: not ported (ROADMAP.md
-    queue 1, 'Multi-device')."""
-    _refuse_unported(lane_mesh=True)
 
 
 __all__ = [

@@ -43,6 +43,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from repro_torch.api.specs import SweepSpec
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core import robust_train as rt
+from repro_torch.core import sharded
 from repro_torch.core.switching import Switcher
 from repro_torch.optim.optimizers import Optimizer
 
@@ -126,10 +127,15 @@ class Session:
     (the worker-momentum baseline; needs ``lr``/``beta``). ``microbatch``
     streams each round's units (``make_dynabro_scan_fn``; the model zoo's
     path), and a ``scan_fn`` given must be built with the same.
-    ``mesh``, ``param_specs`` and ``guard_recompiles=True`` are not
-    ported and raise ``NotImplementedError`` naming their ROADMAP.md item;
-    ``nan_tripwire`` (None: the ``REPRO_NAN_TRIPWIRE`` env var) reads the
-    params back after each step and run and raises on a non-finite value.
+    ``mesh`` (a 1-axis worker mesh, ``launch.mesh.make_worker_mesh``) runs
+    the compiled driver and ``step`` sharded over ``worker_axis``
+    (``make_dynabro_scan_fn``); it needs the worker count (``switcher=`` or
+    ``m=``), divisible by the axis, and the per-round driver refuses it.
+    ``param_specs``, a ``(workers, 'model')`` mesh and
+    ``guard_recompiles=True`` are not ported and raise
+    ``NotImplementedError`` naming their ROADMAP.md item; ``nan_tripwire``
+    (None: the ``REPRO_NAN_TRIPWIRE`` env var) reads the params back after
+    each step and run and raises on a non-finite value.
     """
 
     def __init__(self, cfg, *, grad_fn, params0, opt: Optional[Optimizer] = None,
@@ -153,7 +159,7 @@ class Session:
             raise ValueError("momentum sessions need lr= and beta=")
         if guard_recompiles is None:
             guard_recompiles = _env_on(GUARD_ENV)
-        rt._refuse_unported(mesh=mesh, param_specs=param_specs,
+        rt._refuse_unported(param_specs=param_specs,
                             guard_recompiles=guard_recompiles)
         self.cfg = cfg
         self.grad_fn = grad_fn
@@ -166,19 +172,29 @@ class Session:
         self.mode = mode
         self.lr, self.beta = lr, beta
         self.vectorize_batches = vectorize_batches
+        self.mesh = mesh
         self.worker_axis = worker_axis
         self.microbatch = microbatch
         self.m = m if m is not None else (switcher.m if switcher else None)
         self.nan_tripwire = nan_tripwire
-        if scan_fn is not None and mode == "dynabro":
-            for lane_kind in ("lane_attacks", "lane_aggregators"):
-                if getattr(scan_fn, lane_kind, None) is not None:
-                    raise ValueError(
-                        f"scan_fn was built with {lane_kind}="
-                        f"{getattr(scan_fn, lane_kind)!r}; that variant is "
-                        f"for run_dynabro_scan_sweep(...), not "
-                        f"run_dynabro_scan")
-            rt._check_scan_fn_microbatch(scan_fn, microbatch)
+        if mesh is not None:
+            if self.m is None:
+                raise ValueError("mesh= needs a worker count: pass switcher= "
+                                 "or m=")
+            rt._check_worker_mesh(mesh, worker_axis, self.m,
+                                  allow_model=(mode == "dynabro"))
+        if scan_fn is not None:
+            if mode == "dynabro":
+                for lane_kind in ("lane_attacks", "lane_aggregators"):
+                    if getattr(scan_fn, lane_kind, None) is not None:
+                        raise ValueError(
+                            f"scan_fn was built with {lane_kind}="
+                            f"{getattr(scan_fn, lane_kind)!r}; that variant "
+                            f"is for run_dynabro_scan_sweep(...), not "
+                            f"run_dynabro_scan")
+            rt._check_scan_fn_mesh(scan_fn, mesh)
+            if mode == "dynabro":
+                rt._check_scan_fn_microbatch(scan_fn, microbatch)
         self._scan_fn = scan_fn
         self._schedules: Dict[int, RoundSchedule] = {}
         self._lane_fns: Dict[Tuple, Any] = {}
@@ -194,12 +210,12 @@ class Session:
         if self._scan_fn is None:
             if self.mode == "dynabro":
                 self._scan_fn = rt.make_dynabro_scan_fn(
-                    self.grad_fn, self.cfg, self.opt,
+                    self.grad_fn, self.cfg, self.opt, mesh=self.mesh,
                     worker_axis=self.worker_axis, microbatch=self.microbatch)
             else:
                 self._scan_fn = rt.make_momentum_scan_fn(
                     self.grad_fn, self.cfg, self.lr, self.beta,
-                    worker_axis=self.worker_axis)
+                    mesh=self.mesh, worker_axis=self.worker_axis)
         return self._scan_fn
 
     def _generator_seed(self, seed: int) -> int:
@@ -290,7 +306,11 @@ class Session:
         if driver not in ("scan", "legacy"):
             raise ValueError(
                 f"unknown driver {driver!r}; expected 'scan' or 'legacy'")
+        if driver == "legacy" and self.mesh is not None:
+            raise ValueError("the legacy per-round driver runs unsharded;"
+                             " drop mesh= or use driver='scan'")
         common = dict(seed=self.seed, eval_fn=eval_fn, eval_every=eval_every)
+        sharding = dict(mesh=self.mesh, worker_axis=self.worker_axis)
         if self.mode == "dynabro":
             if driver == "legacy":
                 out = rt.run_dynabro(self.grad_fn, self.params0, self.opt,
@@ -302,7 +322,8 @@ class Session:
                     self.grad_fn, self.params0, self.opt, self.cfg,
                     self.switcher, self.sample_batches, T, chunk=chunk,
                     scan_fn=self.scan_fn, microbatch=self.microbatch,
-                    vectorize_batches=self.vectorize_batches, **common)
+                    vectorize_batches=self.vectorize_batches, **sharding,
+                    **common)
         elif driver == "legacy":
             out = rt.run_momentum(self.grad_fn, self.params0, self.cfg,
                                   self.switcher, self.sample_batches, T,
@@ -313,7 +334,8 @@ class Session:
                 self.grad_fn, self.params0, self.cfg, self.switcher,
                 self.sample_batches, T, lr=self.lr, beta=self.beta,
                 chunk=chunk, scan_fn=self.scan_fn,
-                vectorize_batches=self.vectorize_batches, **common)
+                vectorize_batches=self.vectorize_batches, **sharding,
+                **common)
         maybe_assert_finite(out[0], f"Session.run ({driver}, T={T})",
                             self.nan_tripwire)
         return out
@@ -357,34 +379,49 @@ class Session:
         return levels, ns, n_max, masks, gen_seeds, samplers, replicated
 
     def _sweep_batches(self, samplers, a: int, b: int, ns, n_max: int,
-                       replicated: bool):
-        """One segment's padded batch schedule; with replicates the
-        replicates' schedules stack on axis 1, after the rounds'."""
+                       replicated: bool, row_fn=None):
+        """One segment's padded batch schedule (``row_fn`` as in
+        ``_batch_schedule``); with replicates the replicates' schedules
+        stack on axis 1, after the rounds'."""
         tn = list(zip(range(a, b), ns[a:b]))
         if not replicated:
             return rt._batch_schedule(samplers[0], tn, n_max,
-                                      vectorize=self.vectorize_batches)
+                                      vectorize=self.vectorize_batches,
+                                      row_fn=row_fn)
         per_rep = [rt._batch_schedule(s, tn, n_max,
-                                      vectorize=self.vectorize_batches)
+                                      vectorize=self.vectorize_batches,
+                                      row_fn=row_fn)
                    for s in samplers]
         return tree_map(lambda *ls: torch.stack(ls, 1), *per_rep)
 
-    def _sweep_scan_fn(self, spec_scan_fn, atk_names, agg_names):
+    def _sweep_scan_fn(self, spec_scan_fn, atk_names, agg_names, lm):
         """The sweep's lane scan_fn: built (and kept by the session, so a
         later sweep with the same names replays its graphs) or, when the
-        spec carries one, checked against the names this sweep derives."""
+        spec carries one, checked against the names this sweep derives and
+        against the (normalized) lane mesh ``lm``."""
         if spec_scan_fn is None:
-            key = (atk_names, agg_names)
+            key = (atk_names, agg_names) + (() if lm is None else (lm,))
             fn = self._lane_fns.get(key)
             if fn is None:
                 fn = rt.make_dynabro_scan_fn(
                     self.grad_fn, self.cfg, self.opt, lane_attacks=atk_names,
-                    lane_aggregators=agg_names, worker_axis=self.worker_axis)
+                    lane_aggregators=agg_names, sweep_mesh=lm,
+                    worker_axis=self.worker_axis)
                 if not fn.lanes:
                     fn = fn.lane_form()
                 self._lane_fns[key] = fn
             return fn
         scan_fn = spec_scan_fn
+        if getattr(scan_fn, "worker_mesh", None) is not None:
+            raise ValueError(
+                "scan_fn was built with mesh=; vmapped sweeps run "
+                "unsharded (DESIGN.md §7) — rebuild it without mesh")
+        have_sm = rt._norm_mesh(getattr(scan_fn, "sweep_mesh", None))
+        if have_sm != lm:
+            raise ValueError(
+                f"scan_fn was built with sweep_mesh={have_sm}, but this "
+                f"sweep passes lane_mesh={lm}; rebuild it with "
+                f"make_dynabro_scan_fn(..., sweep_mesh=...) to match")
         # the lane ids index the names: a scan_fn built with other names
         # (or another order) would run the wrong attack or rule on a lane
         for kind, want, arg in (
@@ -409,6 +446,41 @@ class Session:
             scan_fn = scan_fn.lane_form()
         return scan_fn
 
+    def _check_sweep_lane_mesh(self, lane_mesh, lane_axis: str, C: int):
+        if lane_mesh is None:
+            return
+        rt._check_lane_mesh(lane_mesh, lane_axis, self.worker_axis, self.m)
+        n_lanes = lane_mesh.shape[lane_axis]
+        if C % n_lanes:
+            raise ValueError(
+                f"sweep cell count C={C} not divisible by the "
+                f"{lane_axis!r} mesh axis size {n_lanes}")
+
+    @staticmethod
+    def _lane_block(lm, lane_axis: str, C: int) -> List[int]:
+        """The cells of a C-cell grid this rank runs: its block on the lane
+        axis of ``lm`` (all of them without one)."""
+        n = 1 if lm is None else lm.shape[lane_axis]
+        if n == 1:
+            return list(range(C))
+        k = C // n
+        r = lm.coordinate(lane_axis)
+        return list(range(r * k, (r + 1) * k))
+
+    @staticmethod
+    def _gather_lanes(obj, lm, lane_axis: str, dev) -> list:
+        """Every rank's ``obj`` (results of its cells) along the lane axis of
+        ``lm``, in rank order, its tensors on ``dev`` (they cross through
+        the host, bitwise)."""
+        if lm is None or lm.shape[lane_axis] == 1:
+            return [obj]
+
+        def to(x, d):
+            return x.to(d) if isinstance(x, torch.Tensor) else x
+        got = sharded.gather_objects(tree_map(lambda x: to(x, "cpu"), obj),
+                                     lm, lane_axis)
+        return [tree_map(lambda x: to(x, dev), o) for o in got]
+
     def sweep(self, spec: SweepSpec, T: int, *, chunk: int = 0,
               lane_chunk: int = 0, lane_mesh=None,
               lane_axis: str = "lanes") -> List[Any]:
@@ -424,28 +496,49 @@ class Session:
         of per-replicate ``(params, logs)`` lists.
 
         ``lane_chunk`` runs the grid in chunks of at most that many cells
-        (each lane's result is the same). ``lane_mesh`` is not ported and
-        raises ``NotImplementedError``."""
-        rt._refuse_unported(lane_mesh=lane_mesh)
+        (each lane's result is the same).
+
+        ``lane_mesh`` (a 2-axis ``launch.mesh.make_lane_mesh`` mesh; every
+        rank calls this with the same arguments) splits the cells over
+        ``lane_axis`` in blocks, C divisible by it, and each cell's workers
+        over the worker axis (``make_dynabro_scan_fn(sweep_mesh=)``); the
+        results are gathered over the lane axis, so every rank returns every
+        cell's. A lane's bits do not depend on the lanes beside it, so each
+        equals the unsharded sweep's where the worker axis is 1; a mesh of
+        one device is bitwise the unsharded sweep."""
         if self.mode != "dynabro":
             raise ValueError("sweeps are dynabro-mode only")
         spec = spec if isinstance(spec, SweepSpec) else SweepSpec(**spec)
+        C = spec.lanes
+        R = spec.n_replicates
+        if C == 0:
+            return []
+        if T <= 0:
+            return [[(self.params0, [])] * R for _ in range(C)] if R > 1 \
+                else [(self.params0, []) for _ in range(C)]
+        self._check_sweep_lane_mesh(lane_mesh, lane_axis, C)
+        lm = rt._norm_mesh(lane_mesh)
+        cells = self._lane_block(lm, lane_axis, C)
+        if len(cells) < C:
+            spec = spec.lane_subset(cells, scan_fn=spec.scan_fn)
+        outs = self._sweep(spec, T, chunk, lane_chunk, lm)
+        return [o for part in self._gather_lanes(
+            outs, lm, lane_axis, rt._device_of(self.params0)) for o in part]
+
+    def _sweep(self, spec: SweepSpec, T: int, chunk: int, lane_chunk: int,
+               lm) -> List[Any]:
+        """``sweep``'s grid on this rank, T >= 1, the lanes sharded over
+        ``lm``'s worker axis."""
         cfg, opt, params = self.cfg, self.opt, self.params0
         C = spec.lanes
         R = spec.n_replicates
         replicated = R > 1
-        if C == 0:
-            return []
-        if T <= 0:
-            return [[(params, [])] * R for _ in range(C)] if replicated \
-                else [(params, []) for _ in range(C)]
-
         if lane_chunk and lane_chunk > 0 and C > lane_chunk:
             outs: List[Any] = []
             for a in range(0, C, lane_chunk):
                 sub = spec.lane_subset(range(a, min(a + lane_chunk, C)),
                                        scan_fn=spec.scan_fn)
-                outs.extend(self.sweep(sub, T, chunk=chunk))
+                outs.extend(self._sweep(sub, T, chunk, 0, lm))
             return outs
 
         attacks = spec.attack_lanes()
@@ -473,11 +566,11 @@ class Session:
                 outs = [None] * C
                 for name in distinct:
                     idx = [c for c in range(C) if aggregators[c][0] == name]
-                    sub = self.sweep(
+                    sub = self._sweep(
                         spec.lane_subset(
                             idx, scan_fn=(None if group_fns is None
                                           else group_fns[name])),
-                        T, chunk=chunk)
+                        T, chunk, 0, lm)
                     for j, c in enumerate(idx):
                         outs[c] = sub[j]
                 return outs
@@ -488,7 +581,7 @@ class Session:
          replicated) = self._sweep_streams(spec, T)
         (atk_names, agg_names), plan = rt.make_lane_plan(
             cfg, C, attacks, aggregators)
-        scan_fn = self._sweep_scan_fn(scan_fn, atk_names, agg_names)
+        scan_fn = self._sweep_scan_fn(scan_fn, atk_names, agg_names, lm)
         if replicated:
             plan = plan.repeat(R)
 
@@ -500,8 +593,8 @@ class Session:
         lane_masks = masks.reshape((C * R,) + masks.shape[-3:])
         params_out, ok, _ = scan_fn.run(
             carry, levels, np.ascontiguousarray(np.swapaxes(lane_masks, 0, 1)),
-            lambda a, b: self._sweep_batches(samplers, a, b, ns, n_max,
-                                             replicated),
+            lambda a, b, row_fn=None: self._sweep_batches(
+                samplers, a, b, ns, n_max, replicated, row_fn),
             rt._segment_bounds(T, 0, chunk), gen_seeds, lane=plan)
         results = [(tree_map(lambda l, c=c: l[c].clone(), params_out),
                     rt._round_logs(levels, ok[:, c], lane_masks[c],
@@ -533,8 +626,12 @@ class Session:
         cell, in caller order: ``{"pruned": bool, "rounds_run": int,
         "results": [(params, logs), ...]}`` with one entry per replicate; a
         pruned cell's results are its state at the rung that dropped it.
-        ``lane_mesh`` is not ported and raises ``NotImplementedError``."""
-        rt._refuse_unported(lane_mesh=lane_mesh)
+
+        ``lane_mesh`` splits the cells over the lane axis and their workers
+        over the worker axis as ``sweep`` does; the scores are gathered over
+        the lane axis at each rung, and the cells kept there are rounded up
+        to a multiple of the lane axis (as the JAX package keeps its lane
+        axis divisible). Every rank returns every cell's dict."""
         if self.mode != "dynabro":
             raise ValueError("sweeps are dynabro-mode only")
         spec = spec if isinstance(spec, SweepSpec) else SweepSpec(**spec)
@@ -568,14 +665,18 @@ class Session:
         masks = masks.reshape((C, R) + masks.shape[-3:])
         j_max = cfg.mlmc.j_max
         dev = tree_leaves(self.params0)[0].device
-        # the lane batches of ``sweep``: one per distinct rule, unless a
-        # plain scan_fn runs them all
+        self._check_sweep_lane_mesh(lane_mesh, lane_axis, C)
+        lm = rt._norm_mesh(lane_mesh)
+        n_lanes = 1 if lm is None else lm.shape[lane_axis]
+        mine = self._lane_block(lm, lane_axis, C)
+        # the lane batches of ``sweep`` over this rank's cells: one per
+        # distinct rule, unless a plain scan_fn runs them all
         names = [name for name, _ in aggregators] if aggregators else None
         if names is None or spec.scan_fn is not None:
-            batches_of = [list(range(C))]
+            batches_of = [mine]
         else:
-            batches_of = [[c for c in range(C) if names[c] == name]
-                          for name in dict.fromkeys(names)]
+            batches_of = [[c for c in mine if names[c] == name]
+                          for name in dict.fromkeys(names[c] for c in mine)]
 
         def lanes(tree, n):  # the same start in every lane
             return tree_map(lambda l: l.expand((n,) + l.shape).clone(), tree)
@@ -589,7 +690,8 @@ class Session:
             n = len(cells) * R
             groups.append({
                 "cells": cells,
-                "fn": self._sweep_scan_fn(spec.scan_fn, atk_names, agg_names),
+                "fn": self._sweep_scan_fn(spec.scan_fn, atk_names, agg_names,
+                                          lm),
                 "plan": plan.repeat(R) if replicated else plan,
                 "carry": (lanes(self.params0, n),
                           lanes(self.opt.init(self.params0), n)),
@@ -611,10 +713,10 @@ class Session:
         for b in rungs + [T]:
             drawn = {}
 
-            def batches(x, y):  # one draw of the segment for every group
+            def batches(x, y, row_fn=None):  # one draw for every group
                 if (x, y) not in drawn:
-                    drawn[(x, y)] = self._sweep_batches(samplers, x, y, ns,
-                                                        n_max, replicated)
+                    drawn[(x, y)] = self._sweep_batches(
+                        samplers, x, y, ns, n_max, replicated, row_fn)
                 return drawn[(x, y)]
 
             for g in groups:
@@ -632,15 +734,20 @@ class Session:
             if b == T:
                 break
             # prune: the replicate-mean objective over every live cell of
-            # every group, in caller order; lower is better
-            live = sorted((cell, gi, j) for gi, g in enumerate(groups)
-                          for j, cell in enumerate(g["cells"]))
-            res = {cell: results(groups[gi], j, b) for cell, gi, j in live}
-            finals = np.array([[float(objective(p)) for p, _ in res[cell]]
-                               for cell, _, _ in live])
+            # every group and every lane rank, in caller order; lower is
+            # better
+            res = {cell: results(g, j, b) for g in groups
+                   for j, cell in enumerate(g["cells"])}
+            scored = [(cell, [float(objective(p)) for p, _ in res[cell]])
+                      for cell in sorted(res)]
+            live = sorted(c for part in self._gather_lanes(
+                scored, lm, lane_axis, dev) for c in part)
+            finals = np.array([row for _, row in live])
             scores = np.where(np.isnan(finals), np.inf, finals).mean(axis=1)
-            k = min(max(int(min_cells), int(np.ceil(len(live) * keep))),
-                    len(live))
+            k = max(int(min_cells), int(np.ceil(len(live) * keep)))
+            if n_lanes > 1:  # keep the lane axis divisible
+                k = max(n_lanes, int(np.ceil(k / n_lanes)) * n_lanes)
+            k = min(k, len(live))
             order = np.argsort(scores, kind="stable")
             kept = {live[int(i)][0] for i in order[:k]}
             for cell in res:
@@ -663,6 +770,10 @@ class Session:
             for j, cell in enumerate(g["cells"]):
                 outs[cell] = {"pruned": False, "rounds_run": T,
                               "results": results(g, j, T)}
+        for part in self._gather_lanes({c: outs[c] for c in mine}, lm,
+                                       lane_axis, dev):
+            for c, out in part.items():
+                outs[c] = out
         return outs
 
 

@@ -254,15 +254,27 @@ def tree_combine_reduce(stacked: Tree, w: torch.Tensor, *, mode: str, trim=0,
 
 class Aggregator:
     """Base: ``.tree()`` aggregates a worker-stacked parameter dict (every
-    leaf with a leading worker axis m) into one worker's shape."""
+    leaf with a leading worker axis m) into one worker's shape, and
+    ``__call__`` an (m, d) matrix, as a one-leaf tree in float32."""
 
     name = "base"
+    coordinate_wise = False
 
     def __init__(self, backend: str = "auto"):
         self.backend = backend
 
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tree({"x": torch.as_tensor(x).to(torch.float32)})["x"]
+
     def tree(self, stacked: Tree) -> Tree:
         raise NotImplementedError
+
+    def leaf(self, l: torch.Tensor) -> torch.Tensor:
+        """(m, ...) -> (...). Exact only for coordinate-wise rules, which
+        aggregate each parameter shard on its own."""
+        raise NotImplementedError(
+            f"{self.name} needs global geometry; only coordinate-wise rules "
+            "support per-shard aggregation (DESIGN.md §3)")
 
 
 class CoordinateWiseRule(Aggregator):
@@ -271,6 +283,7 @@ class CoordinateWiseRule(Aggregator):
     ``tree_cw_reduce`` over the tree."""
 
     cr_mode: Optional[str] = None  # set by each rule
+    coordinate_wise = True
 
     def trim(self, m: int) -> int:
         """Rows dropped at each end of m (the trimmed mean's)."""

@@ -43,6 +43,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import math
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -58,6 +59,7 @@ from repro_torch.core.mlmc import (
     MLMCConfig, level_prefix, level_schedule, mlmc_combine, round_cost,
     sample_level,
 )
+from repro_torch.core import sharded
 from repro_torch.core.switching import Switcher
 from repro_torch.kernels.fused import LAUNCHES
 from repro_torch.optim.optimizers import Optimizer, apply_updates
@@ -155,7 +157,7 @@ def _combine_levels(cfg: DynaBROConfig, grads, j: int):
 
 
 def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
-                   masks, n: int, j: int, generator=None):
+                   masks, n: int, j: int, generator=None, gather=None):
     """The round's three level means without the (m, n, ...) stack: unit by
     unit, the (m, ...) worker gradients of unit k (batches: tree leading (m,
     n)), attacked with unit k's mask (masks: (n, m)) and, for ``random``,
@@ -167,13 +169,17 @@ def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
     accumulators are contiguous; the first half's is kept only when the
     MLMC branch is live and the full sum only when it or plain SGD reads
     it. The summation order differs from the stacked means', so the
-    streamed round is not bitwise the stacked one."""
+    streamed round is not bitwise the stacked one. ``gather`` re-assembles
+    each unit's worker gradients from the ranks' blocks, as in
+    ``make_dynabro_step``."""
     mlmc_live = cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max
     need_all = mlmc_live or not cfg.use_mlmc
     worker_grads = vmap(grad_fn, in_dims=(None, 0))
     a0 = ah = aa = None
     for k in range(n):
         g = worker_grads(params, tree_map(lambda l: l.select(1, k), batches))
+        if gather is not None:
+            g = gather(g)
         g = atk(g, masks[k], generator=generator)
         g = {key: v.to(F32).contiguous() for key, v in g.items()}
         if k == 0:
@@ -201,17 +207,23 @@ def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
                                 n, j)
 
 
-def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer):
+def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
+                      gather=None):
     """Returns step(params, opt_state, batches, masks, j, generator=None):
     one round of Algorithm 2, shared by both drivers.
 
     batches: tree leading (m, 2^j) (or (m, 1) when j=0 / beyond cap);
     masks: (2^j, m) bool tensor — within-round identity masks; generator:
-    what the ``random`` attack draws from.
+    what the ``random`` attack draws from. ``gather`` (a sharded compiled
+    driver's ``_WorkerGather``) re-assembles the gradients of this rank's
+    block of workers, ``batches`` leading (m_local, 2^j), into the (m, ...)
+    stack before the attack.
     """
 
     def step(params, opt_state, batches, masks, j: int, generator=None):
         grads = _per_worker_grads(grad_fn, params, batches)  # (m, n, ...)
+        if gather is not None:
+            grads = gather(grads)
         grads = _attack_stack(cfg, grads, masks, generator)
         g, info = _combine_levels(cfg, grads, j)
         updates, opt_state = opt.update(g, opt_state, params)
@@ -222,18 +234,21 @@ def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer):
 
 
 def make_momentum_step(grad_fn: GradFn, cfg: DynaBROConfig, lr: float,
-                       beta: float):
+                       beta: float, gather=None):
     """Worker-momentum baseline (App. E semantics): returns
     step(params, worker_m, batches, mask, generator=None), one round shared
     by both momentum drivers: the attack on the m unit gradients (batches:
     tree leading (m,); mask: (m,)), each worker's float32 momentum
     ``beta * m + (1 - beta) * g``, and an sgd step of ``lr`` on the robust
     aggregate of the momenta (n = 1). beta=0 recovers vanilla distributed
-    SGD."""
+    SGD. ``gather`` re-assembles the unit gradients of this rank's block of
+    workers (``make_dynabro_step``); the momenta are every worker's."""
     atk = attacks_lib.get_attack(cfg.attack, **(cfg.attack_kwargs or {}))
 
     def step(params, worker_m, batches, mask, generator=None):
         grads = vmap(grad_fn, in_dims=(None, 0))(params, batches)
+        if gather is not None:
+            grads = gather(grads)
         grads = atk(grads, mask, generator=generator)
         worker_m = {k: beta * worker_m[k] + (1.0 - beta) * grads[k].to(F32)
                     for k in sorted(worker_m)}
@@ -350,7 +365,8 @@ def _pad_units(tree, n_max: int, axis: int):
     return tree_map(pad, tree)
 
 
-def _batch_schedule(sample_batches, tn, n_max: int, vectorize: bool = True):
+def _batch_schedule(sample_batches, tn, n_max: int, vectorize: bool = True,
+                    row_fn=None):
     """Stack a segment's batches into an (L, m, n_max, ...) padded schedule
     (a nested dict, such as the zoo's ``extra``, keeps its structure):
     ``tn`` is the segment's [(t, n_t), ...], and each round calls
@@ -358,12 +374,17 @@ def _batch_schedule(sample_batches, tn, n_max: int, vectorize: bool = True):
     driver's batch size (the sampler's output may depend on n, so padding
     follows sampling). Each round is written straight into its row of the
     schedule, padded as ``_pad_units`` pads (the first unit repeated), so
-    no second copy of the segment is held. ``vectorize`` is taken for the
-    JAX package's signature and changes nothing: the port's samplers are
-    called one round at a time."""
+    no second copy of the segment is held. ``row_fn`` (None: none) maps
+    each round's (m, n_t, ...) tree before it is written, as a sharded
+    driver narrows it to its rank's workers, so the schedule is as wide as
+    what ``row_fn`` keeps. ``vectorize`` is taken for the JAX package's
+    signature and changes nothing: the port's samplers are called one
+    round at a time."""
     out = None
     for i, (t, n) in enumerate(tn):
         row = sample_batches(t, int(n))
+        if row_fn is not None:
+            row = row_fn(row)
         if out is None:
             out = tree_map(lambda l: l.new_empty(
                 (len(tn), l.shape[0], n_max) + tuple(l.shape[2:])), row)
@@ -431,9 +452,6 @@ def _segment_bounds(T: int, eval_every: int, chunk: int):
 # the JAX package's keywords that the port does not take yet, and the
 # ROADMAP.md queue 1 item that brings each
 _UNPORTED = {
-    "mesh": "Multi-device",
-    "sweep_mesh": "Multi-device",
-    "lane_mesh": "Multi-device",
     "param_specs": "Multi-device",  # the JAX package's GSPMD sharding
     "guard_recompiles": "lint/",
 }
@@ -445,6 +463,124 @@ def _refuse_unported(**kw) -> None:
             raise NotImplementedError(
                 f"{name}= is not ported to repro_torch yet (ROADMAP.md "
                 f"queue 1, {_UNPORTED[name]!r})")
+
+
+# ------------------------------------------------------ worker meshes
+#
+# Every rank calls a sharded driver with the same arguments. Params,
+# optimizer state, momenta, masks, levels and generators are replicated;
+# only the batch schedule is split on its worker axis, rank r of an axis of
+# n holding workers [r·m/n, (r+1)·m/n). After the worker gather every rank
+# runs the same attack, aggregation and update, so every rank returns the
+# same params and logs.
+
+
+def _check_scan_fn_mesh(scan_fn, mesh) -> None:
+    """Reject a prebuilt scan_fn whose build-time mesh disagrees with this
+    run's ``mesh=``: an unsharded fn passed with a mesh would silently run
+    the whole loop unsharded (and vice versa). Fns built outside
+    ``make_*_scan_fn`` carry no tag and are trusted."""
+    have = getattr(scan_fn, "worker_mesh", mesh)
+    if (have is None) != (mesh is None) or have != mesh:
+        raise ValueError(
+            f"scan_fn was built with mesh={have}, but this run passes "
+            f"mesh={mesh}; rebuild the scan_fn with the same mesh")
+
+
+def _check_worker_mesh(mesh, worker_axis: str, m: Optional[int] = None,
+                       allow_model: bool = True) -> None:
+    """A 1-axis ``(worker_axis,)`` mesh whose axis divides m (None: not
+    checked). The JAX package's 2-axis ``(workers, 'model')`` GSPMD mesh is
+    not ported and raises ``NotImplementedError`` where it would be taken."""
+    axes = tuple(mesh.axis_names)
+    if allow_model and axes == (worker_axis, "model"):
+        raise NotImplementedError(
+            "a (workers, 'model') mesh selects the GSPMD path, which is not "
+            "ported to repro_torch yet (ROADMAP.md queue 1, 'Multi-device', "
+            "Mode B)")
+    if axes != (worker_axis,):
+        want = f"1-axis ({worker_axis!r},)" + (
+            f" or 2-axis ({worker_axis!r}, 'model')" if allow_model else "")
+        raise ValueError(
+            f"sharded driver needs a {want} mesh, got "
+            f"axes {axes} (see launch.mesh.make_worker_mesh)")
+    n_dev = mesh.shape[worker_axis]
+    if m is not None and m % n_dev:
+        raise ValueError(
+            f"worker count m={m} not divisible by the {worker_axis!r} mesh "
+            f"axis size {n_dev}")
+
+
+def _check_lane_mesh(mesh, lane_axis: str, worker_axis: str,
+                     m: Optional[int] = None) -> None:
+    """Reject a sweep mesh that is not the 2-axis ``(lanes, workers)``
+    form; with ``m`` also check worker divisibility (the lane divisibility
+    check needs the lane count and lives in the sweep)."""
+    axes = tuple(mesh.axis_names)
+    if axes != (lane_axis, worker_axis):
+        raise ValueError(
+            f"sharded sweeps need a 2-axis ({lane_axis!r}, {worker_axis!r}) "
+            f"mesh, got axes {axes} (see launch.mesh.make_lane_mesh)")
+    if m is not None and m % mesh.shape[worker_axis]:
+        raise ValueError(
+            f"worker count m={m} not divisible by the {worker_axis!r} mesh "
+            f"axis size {mesh.shape[worker_axis]}")
+
+
+def _norm_mesh(mesh):
+    """A mesh of one device is the unsharded path: None."""
+    if mesh is None or math.prod(list(mesh.shape.values())) == 1:
+        return None
+    return mesh
+
+
+class _WorkerGather:
+    """The worker gather of a sharded round function over ``mesh``'s
+    ``axis``: ``gather(tree, dim=0)`` re-assembles the (.., m_local, ..)
+    stacks of the ranks (``dim`` the worker axis) into (.., m, ..) in rank
+    order, and ``shard(tree, dim)`` takes this rank's block of workers out
+    of a full batch. Eager it runs the collective
+    (``sharded.gather_worker_stack``); while ``_LevelGraphs`` captures a
+    round, ``split`` is set and cuts the capture there instead."""
+
+    def __init__(self, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.n = mesh.shape[axis]
+        self.split = None
+
+    def __call__(self, tree, dim: int = 0):
+        if self.split is not None:
+            return self.split(tree, dim)
+        return sharded.gather_worker_stack(tree, self.mesh, self.axis, dim)
+
+    def buffers(self, flats):
+        """The buffers an all-gather of ``sharded.pack``'s ``flats`` writes,
+        and the call that runs it."""
+        bufs = sharded.empty_buffers(flats, self.n)
+        return bufs, functools.partial(sharded.all_gather_into, bufs, flats,
+                                       self.mesh.group(self.axis))
+
+    def shard(self, tree, dim: int):
+        r = self.mesh.coordinate(self.axis)
+
+        def block(leaf):
+            k, rest = divmod(leaf.shape[dim], self.n)
+            if rest:
+                raise ValueError(
+                    f"worker count m={leaf.shape[dim]} not divisible by the "
+                    f"{self.axis!r} mesh axis size {self.n}")
+            return leaf.narrow(dim, r * k, k).contiguous()
+        return tree_map(block, tree)
+
+
+def _worker_gather(mesh, worker_axis: str) -> Optional[_WorkerGather]:
+    """The gather of a sharded round function, or None where there is
+    nothing to re-assemble (no mesh, or a worker axis of one device, whose
+    block is the whole stack): the 1-device mesh runs the unsharded round
+    function, bitwise the unsharded driver by construction."""
+    if mesh is None or mesh.shape[worker_axis] == 1:
+        return None
+    return _WorkerGather(mesh, worker_axis)
 
 
 def _check_scan_fn_microbatch(scan_fn, microbatch: bool) -> None:
@@ -511,6 +647,15 @@ class _LevelGraphs:
     memory pool; they never run at once, and all a round keeps is copied
     out of the pool before it ends.
 
+    Under a worker mesh (``gather``, a ``_WorkerGather``) a round's worker
+    gather is a collective the host runs (gloo's goes through it), which a
+    graph cannot hold: the capture is cut at each gather into the graph
+    before it and the graph after it, and a replay runs the gather eagerly
+    between them, from the packed stacks the first graph leaves in the pool
+    (kept alive, so no later capture takes their memory) into buffers the
+    second graph reads. ``GATHERS`` counts the replays' gathers as
+    ``LAUNCHES`` counts their kernels. Without one a round is one graph.
+
     Launch counts: a replay calls no wrapper, so each graph keeps the
     ``LAUNCHES`` its capture counted, and the driver adds them once for
     every replay; the warm-up's and the capture's own counts are taken back
@@ -523,9 +668,10 @@ class _LevelGraphs:
     """
 
     def __init__(self, round_fn, carry, batch_rows, mask_rows, generators,
-                 L: int, T: int, flags: bool, lane=None):
+                 L: int, T: int, flags: bool, lane=None, gather=None):
         dev = tree_leaves(carry)[0].device
         self.round_fn, self.generators, self.flags = round_fn, generators, flags
+        self.gather = gather
         self.carry = tree_map(torch.clone, carry)
         self.batches = tree_map(
             lambda l: torch.zeros((L,) + l.shape[1:], dtype=l.dtype, device=dev),
@@ -543,7 +689,8 @@ class _LevelGraphs:
         self.L, self.T = L, T
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = _capture_stream(dev)
-        self.graphs: Dict[Any, tuple] = {}  # key -> (CUDAGraph, launches)
+        # key -> ([(CUDAGraph, the gather after it or None), ...], launches)
+        self.graphs: Dict[Any, tuple] = {}
         self.capture_seconds: Dict[Any, float] = {}
 
     def fits(self, carry, batch_rows, mask_rows, L: int, T: int,
@@ -557,6 +704,57 @@ class _LevelGraphs:
         return _call_round(self.round_fn, self.carry, batch, masks, key,
                            self.generators, self.lane)
 
+    def _begin(self) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
+        graph.capture_begin(pool=self.pool)
+        return graph
+
+    def _capture_round(self, key) -> list:
+        """Capture one round on the capturing stream as graph pieces, cut at
+        each worker gather (``torch.cuda.graph``'s own steps: the card
+        synchronised and the cache emptied before the first piece, and the
+        capture ended when the round raises, so the stream takes work
+        again)."""
+        pieces, graph = [], None
+
+        def split(tree, dim):
+            nonlocal graph
+            flats, layout = sharded.pack(tree, dim)
+            done, graph = graph, None
+            done.capture_end()
+            bufs, gather = self.gather.buffers(flats)
+            pieces.append((done, gather))
+            graph = self._begin()
+            return sharded.unpack(bufs, layout)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if self.gather is not None:
+            self.gather.split = split
+        with torch.cuda.stream(self.stream):
+            try:
+                graph = self._begin()
+                carry, ok, corr_norm = self._round(key)
+                tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
+                if self.flags:
+                    row = (1,) + tuple(self.ok.shape[1:])
+                    self.ok.index_copy_(0, self.gidx, ok.reshape(row))
+                    self.corr_norm.index_copy_(0, self.gidx,
+                                               corr_norm.reshape(row).to(F32))
+                self.gidx.add_(1)
+                self.sidx.add_(1)
+                done, graph = graph, None
+                done.capture_end()
+                pieces.append((done, None))
+            finally:
+                if graph is not None:
+                    graph.capture_end()
+                if self.gather is not None:
+                    self.gather.split = None
+        return pieces
+
     def capture(self, keys) -> None:
         """Warm the rounds of ``keys`` up on the capturing stream (the
         kernels' counters, the libraries' workspaces), then capture each. The
@@ -565,8 +763,9 @@ class _LevelGraphs:
         and a capture from the graphs' pool, which keeps its memory while
         the graphs live; so a warm-up after a capture would hold both at
         once (a model's round holds tens of GB). A capture that fails
-        raises: there is no eager fallback."""
-        before = dict(LAUNCHES)
+        raises: there is no eager fallback. The warm-ups' gathers run the
+        collective; neither they nor the captures count."""
+        before, gathers = dict(LAUNCHES), dict(sharded.GATHERS)
         current = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(current)
         for key in keys:
@@ -581,41 +780,34 @@ class _LevelGraphs:
             self.capture_seconds[key] = time.perf_counter() - t0
         current.wait_stream(self.stream)
         LAUNCHES.update(before)
+        sharded.GATHERS.update(gathers)
         for key in keys:
             t0 = time.perf_counter()
             self.sidx.zero_()
             self.gidx.zero_()
-            graph = torch.cuda.CUDAGraph()
-            for generator in self.generators:
-                graph.register_generator_state(generator)
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                carry, ok, corr_norm = self._round(key)
-                tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
-                if self.flags:
-                    row = (1,) + tuple(self.ok.shape[1:])
-                    self.ok.index_copy_(0, self.gidx, ok.reshape(row))
-                    self.corr_norm.index_copy_(0, self.gidx,
-                                               corr_norm.reshape(row).to(F32))
-                self.gidx.add_(1)
-                self.sidx.add_(1)
-            # the round's outputs go back to the pool for the next capture
-            del carry, ok, corr_norm
+            pieces = self._capture_round(key)
+            # the round's outputs went back to the pool for the next capture
             launches = {k: v - before[k] for k, v in LAUNCHES.items()
                         if v != before[k]}
             LAUNCHES.update(before)
-            self.graphs[key] = (graph, launches)
+            self.graphs[key] = (pieces, launches)
             self.capture_seconds[key] += time.perf_counter() - t0
 
     def replay(self, keys) -> None:
-        """Replay the graphs of ``keys`` in order under
-        ``torch.cuda.set_sync_debug_mode("error")``: a host sync in the loop
-        raises."""
-        graphs = [self.graphs[k][0] for k in keys]
+        """Replay the graphs of ``keys`` in order, each under
+        ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the loop
+        raises), and the gathers between a round's graphs outside it."""
+        rounds = [self.graphs[k][0] for k in keys]
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for graph in graphs:
-                graph.replay()
+            for pieces in rounds:
+                for graph, gather in pieces:
+                    graph.replay()
+                    if gather is not None:
+                        torch.cuda.set_sync_debug_mode(mode)
+                        gather()
+                        torch.cuda.set_sync_debug_mode("error")
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         for key, count in collections.Counter(keys).items():
@@ -644,12 +836,18 @@ class ScanFn:
     ``corr_norms`` holds its rounds' correction norms ((T,) or (T, C), read
     once after the last segment; None in momentum mode). ``microbatch``
     tells which unit path a DynaBRO round function runs.
+
+    ``gather`` is the round function's ``_WorkerGather`` under a worker
+    mesh: every rank runs the same rounds, each from its own block of the
+    workers' batches (``run`` and ``run_round`` take full batches and keep
+    the block), and the level graphs are cut at the gathers.
     """
 
     lane_attacks: Optional[tuple] = None
     lane_aggregators: Optional[tuple] = None
     lanes = False
     microbatch = False
+    gather: Optional[_WorkerGather] = None
 
     def __init__(self, round_fn, flags: bool):
         self.round_fn, self.flags = round_fn, flags
@@ -679,7 +877,7 @@ class ScanFn:
             g = self._graphs = None
             g = self._graphs = _LevelGraphs(self.round_fn, carry, batch_rows,
                                             masks_dev, gens, L, T, self.flags,
-                                            lane)
+                                            lane, self.gather)
         return g
 
     def run(self, carry, keys, masks: np.ndarray, batches, bounds, seed,
@@ -687,7 +885,9 @@ class ScanFn:
             whole_carry: bool = False):
         """Run the rounds ``start`` .. ``bounds[-1]`` - 1 of ``keys`` (T,)
         from ``carry``, in the segments ending at ``bounds``: ``batches(a,
-        b)`` gives rounds a..b-1's schedule (tree leading (b - a, ...)),
+        b)`` gives rounds a..b-1's schedule (tree leading (b - a, ...));
+        under a worker mesh it is called with ``row_fn=``, the narrowing of
+        each drawn round to this rank's workers (``_batch_schedule``).
         ``masks`` (T, ...) every round's. ``seed`` seeds the generator, or
         is one seed per replicate of a sweep; a seed given as a
         ``get_state()`` tensor sets the generator to that state instead (a
@@ -696,6 +896,9 @@ class ScanFn:
         ``whole_carry``; the rounds' flags, a (rounds,) or (rounds, C) bool
         array, or None; evals)."""
         dev = tree_leaves(carry)[0].device
+        if self.gather is not None:  # each round narrowed as it is drawn
+            batches = functools.partial(batches, row_fn=functools.partial(
+                self.gather.shard, dim=0))
         seeds = ((seed,) if isinstance(seed, (int, np.integer, torch.Tensor))
                  else tuple(seed))
         gens = self.generators(dev, len(seeds))
@@ -782,6 +985,8 @@ class ScanFn:
         level has none yet. So rounds driven one at a time give the bits of
         the same rounds inside ``run``."""
         dev = tree_leaves(carry)[0].device
+        if self.gather is not None:
+            batch = self.gather.shard(batch, 0)
         (gen,) = self.generators(dev, 1)
         if state is not None:
             gen.set_state(state)
@@ -834,22 +1039,57 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     microbatched driver; it is not bitwise the stacked path. Not for the
     lane form (sweeps materialize by design).
 
-    ``mesh``, ``param_specs`` and ``sweep_mesh`` are not ported and raise
-    ``NotImplementedError``; ``worker_axis`` and ``lane_axis`` are taken for
-    the JAX package's signature."""
-    _refuse_unported(mesh=mesh, param_specs=param_specs, sweep_mesh=sweep_mesh)
+    ``mesh`` (a 1-axis mesh from ``launch.mesh.make_worker_mesh``) shards
+    the round over ``worker_axis``: each rank computes the per-worker
+    gradients of its block of workers, the stacks are re-assembled with a
+    worker all-gather (``_WorkerGather``; on a card the level graphs are
+    cut there), and the attack, the aggregation and the update run on
+    every rank as the unsharded round runs them. A mesh of one device runs
+    the unsharded round function, bitwise ``mesh=None``. The scan_fn keeps
+    ``mesh`` as ``worker_mesh`` for the drivers' check.
+
+    ``sweep_mesh`` (a 2-axis ``(lanes, workers)`` mesh from
+    ``launch.mesh.make_lane_mesh``) builds the sweep's lane form sharded
+    over ``worker_axis`` the same way (``Session.sweep`` splits the lanes
+    over ``lane_axis``); exclusive with ``mesh`` and ``microbatch``.
+    ``lane_attacks`` / ``lane_aggregators`` reject ``mesh``. A
+    ``(workers, 'model')`` mesh and ``param_specs`` (the GSPMD path) are not
+    ported and raise ``NotImplementedError``."""
+    if (lane_attacks is not None or lane_aggregators is not None) \
+            and mesh is not None:
+        raise ValueError(
+            "lane_attacks/lane_aggregators are for the vmapped sweep, which "
+            "runs unsharded; drop mesh= (DESIGN.md §7)")
+    if sweep_mesh is not None:
+        if mesh is not None:
+            raise ValueError(
+                "sweep_mesh= (the vmapped sweep's lane mesh) and mesh= (the "
+                "per-run worker mesh) are exclusive; see DESIGN.md §12")
+        if microbatch:
+            raise ValueError(
+                "microbatch streaming is not supported on the sweep "
+                "variants (DESIGN.md §9); drop sweep_mesh/microbatch")
+        _check_lane_mesh(sweep_mesh, lane_axis, worker_axis)
     if microbatch and (lane_attacks is not None
                        or lane_aggregators is not None):
         raise ValueError(
             "microbatch streaming is not supported on the lane-batched sweep "
             "variant (DESIGN.md §9); drop lane_attacks/lane_aggregators")
+    if mesh is not None:
+        _check_worker_mesh(mesh, worker_axis)
+    _refuse_unported(param_specs=param_specs)
     if lane_attacks is not None or lane_aggregators is not None:
-        return _lane_scan_fn(grad_fn, cfg, opt, lane_attacks, lane_aggregators)
+        return _lane_scan_fn(grad_fn, cfg, opt, lane_attacks, lane_aggregators,
+                             sweep_mesh, worker_axis)
     if microbatch:
-        return _streamed_scan_fn(grad_fn, cfg, opt)
+        scan_fn = _streamed_scan_fn(grad_fn, cfg, opt,
+                                    _worker_gather(mesh, worker_axis))
+        scan_fn.worker_mesh = mesh
+        return scan_fn
     j_max = cfg.mlmc.j_max
     n_max = 2 ** j_max if cfg.use_mlmc else 1
-    step = make_dynabro_step(grad_fn, cfg, opt)
+    gather = _worker_gather(mesh, worker_axis)
+    step = make_dynabro_step(grad_fn, cfg, opt, gather)
 
     def round_fn(carry, batch, masks, j, generator):
         n = 2 ** j if (cfg.use_mlmc and 1 <= j <= j_max) else 1
@@ -859,14 +1099,17 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
         return (params, opt_state), info["failsafe_ok"], info["corr_norm"]
 
     scan_fn = ScanFn(round_fn, flags=True)
+    scan_fn.gather = gather
+    scan_fn.worker_mesh = mesh
+    scan_fn.sweep_mesh = sweep_mesh
     # the same cfg's lane form, for sweeps that carry this scan_fn
-    scan_fn.lane_form = functools.cache(
-        functools.partial(_lane_scan_fn, grad_fn, cfg, opt, None, None))
+    scan_fn.lane_form = functools.cache(functools.partial(
+        _lane_scan_fn, grad_fn, cfg, opt, None, None, sweep_mesh, worker_axis))
     return scan_fn
 
 
-def _streamed_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig,
-                      opt: Optimizer) -> ScanFn:
+def _streamed_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
+                      gather=None) -> ScanFn:
     """``make_dynabro_scan_fn(microbatch=True)``'s round loop."""
     j_max = cfg.mlmc.j_max
     n_max = 2 ** j_max if cfg.use_mlmc else 1
@@ -877,13 +1120,14 @@ def _streamed_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig,
         params, opt_state = carry
         g, info = _stream_levels(grad_fn, cfg, atk, params,
                                  level_prefix(batch, n, n_max, axis=1),
-                                 masks[:n], n, j, generator)
+                                 masks[:n], n, j, generator, gather)
         updates, opt_state = opt.update(g, opt_state, params)
         params = apply_updates(params, updates)
         return (params, opt_state), info["failsafe_ok"], info["corr_norm"]
 
     scan_fn = ScanFn(round_fn, flags=True)
     scan_fn.microbatch = True
+    scan_fn.gather = gather
     return scan_fn
 
 
@@ -919,20 +1163,30 @@ def run_dynabro_scan(
     prebuilt ``make_dynabro_scan_fn`` result to reuse its graphs (built
     with this run's ``microbatch``). ``microbatch`` streams each round's
     units (``make_dynabro_scan_fn``); the model zoo runs this way.
-    ``vectorize_batches`` changes nothing (``_batch_schedule``); ``mesh``
-    and ``param_specs`` raise ``NotImplementedError``."""
-    _refuse_unported(mesh=mesh, param_specs=param_specs)
+    ``vectorize_batches`` changes nothing (``_batch_schedule``).
+
+    ``mesh`` (a 1-axis worker mesh, ``launch.mesh.make_worker_mesh``) runs
+    the loop sharded over ``worker_axis`` (``make_dynabro_scan_fn``): every
+    rank of the mesh calls this with the same arguments and returns the same
+    params and logs; ``switcher.m`` must be divisible by the axis. A mesh of
+    one device is bitwise ``mesh=None``. A ``(workers, 'model')`` mesh and
+    ``param_specs`` raise ``NotImplementedError``."""
+    if mesh is not None:
+        _check_worker_mesh(mesh, worker_axis, switcher.m)
+    _refuse_unported(param_specs=param_specs)
+    _check_scan_fn_mesh(scan_fn, mesh)
     _check_scan_fn_microbatch(scan_fn, microbatch)
     if T <= 0:
         return params, [], []
-    scan_fn = scan_fn or make_dynabro_scan_fn(grad_fn, cfg, opt,
-                                              microbatch=microbatch)
+    scan_fn = scan_fn or make_dynabro_scan_fn(
+        grad_fn, cfg, opt, mesh=mesh, worker_axis=worker_axis,
+        microbatch=microbatch)
     levels, ns, n_max = _level_plan(cfg, np.random.default_rng(seed), T)
     masks = _mask_schedule(switcher, T, n_max, ns)
 
-    def batches(a, b):
+    def batches(a, b, row_fn=None):
         return _batch_schedule(sample_batches, list(zip(range(a, b), ns[a:b])),
-                               n_max, vectorize=vectorize_batches)
+                               n_max, vectorize=vectorize_batches, row_fn=row_fn)
 
     params, ok, evals = scan_fn.run(
         (params, opt.init(params)), levels, masks, batches,
@@ -1072,7 +1326,8 @@ def _lane_opt_step(opt: Optimizer, params, opt_state, grads):
 
 
 def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
-                  lane_attacks, lane_aggregators) -> ScanFn:
+                  lane_attacks, lane_aggregators, sweep_mesh=None,
+                  worker_axis: str = "workers") -> ScanFn:
     """The sweep's compiled round loop over a ``LanePlan``'s lanes (the
     carry's leaves lead with the lane axis C; the batch is shared, or (R,
     ...) with one per replicate; the masks are (C, n_max, m)):
@@ -1097,7 +1352,11 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     at 8, 5, 3, 2 and 1 lanes), so a lane of a sweep is the same lane of
     any sweep of a subset of its lanes (what ``Session.sweep_halving``
     needs). Each lane's round is the round of a lone ``run_dynabro_scan``
-    of that lane, up to the rounding of the rules' lane forms."""
+    of that lane, up to the rounding of the rules' lane forms.
+
+    Under ``sweep_mesh`` each rank computes the gradients of its block of
+    workers (the worker axis of ``sweep_mesh``) and the worker gather
+    re-assembles the (C, m, n, ...) stack before the attack."""
     atk_names = (tuple(lane_attacks) if lane_attacks is not None
                  else (cfg.attack,))
     agg_names = (tuple(lane_aggregators) if lane_aggregators is not None
@@ -1106,6 +1365,7 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     n_max = 2 ** j_max if cfg.use_mlmc else 1
     atk_apply = attacks_lib.attack_switch(atk_names)
     agg_apply = agg_switch(agg_names, backend=cfg.agg_backend, mlmc=cfg.mlmc)
+    gather = _worker_gather(sweep_mesh, worker_axis)
 
     def lane_grads(params, batch, R: int):
         # each lane's gradients as a lone run computes them, one vmap over
@@ -1146,6 +1406,8 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
         n = 2 ** j if (cfg.use_mlmc and 1 <= j <= j_max) else 1
         b = level_prefix(batch, n, n_max, axis=1 if plan.replicates == 1 else 2)
         grads = lane_grads(params, b, plan.replicates)  # (C, m, n, ...)
+        if gather is not None:
+            grads = gather(grads, 1)
         grads = lane_attack(plan, grads, masks[:, :n], gens,
                             rows["attack_theta"])
         gbar_all = {k: v.mean(2) for k, v in grads.items()}
@@ -1181,6 +1443,8 @@ def _lane_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
 
     scan_fn = ScanFn(round_fn, flags=True)
     scan_fn.lanes = True
+    scan_fn.gather = gather
+    scan_fn.sweep_mesh = sweep_mesh
     scan_fn.lane_attacks = (tuple(lane_attacks) if lane_attacks is not None
                             else None)
     scan_fn.lane_aggregators = (tuple(lane_aggregators)
@@ -1202,6 +1466,8 @@ def run_dynabro_scan_sweep(
     vectorize_batches: bool = True,
     attacks=None,
     aggregators=None,
+    sweep_mesh=None,
+    lane_axis: str = "lanes",
 ):
     """Run C = len(switchers) DynaBRO cells as lanes of one compiled loop.
 
@@ -1223,6 +1489,10 @@ def run_dynabro_scan_sweep(
     replays the whole lane batch, with one ``cw_reduce`` launch an
     aggregation for the coordinate-wise lanes.
 
+    ``sweep_mesh`` (a ``(lanes, workers)`` mesh from
+    ``launch.mesh.make_lane_mesh``) runs the cells sharded over it, as
+    ``Session.sweep(lane_mesh=)`` does.
+
     A wrapper over ``repro_torch.api.Session.sweep`` with a validated
     ``SweepSpec``."""
     from repro_torch.api.session import Session
@@ -1234,23 +1504,32 @@ def run_dynabro_scan_sweep(
         scan_fn=scan_fn)
     sess = Session(cfg, grad_fn=grad_fn, params0=params, opt=opt,
                    sample_batches=sample_batches, seed=seed,
-                   vectorize_batches=vectorize_batches)
-    return sess.sweep(spec, T, chunk=chunk)
+                   vectorize_batches=vectorize_batches,
+                   m=next((sw.m for sw in switchers
+                           if isinstance(sw, Switcher)), None))
+    return sess.sweep(spec, T, chunk=chunk, lane_mesh=sweep_mesh,
+                      lane_axis=lane_axis)
 
 
 def make_momentum_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, lr: float,
                           beta: float, *, mesh=None,
                           worker_axis: str = "workers") -> ScanFn:
     """Compiled worker-momentum loop: a ``ScanFn`` over the round of
-    ``make_momentum_step`` (one CUDA graph on a card). ``mesh`` raises
-    ``NotImplementedError``."""
-    _refuse_unported(mesh=mesh)
-    step = make_momentum_step(grad_fn, cfg, lr, beta)
+    ``make_momentum_step`` (one CUDA graph on a card). ``mesh`` (1-axis
+    only) shards the per-worker gradients over ``worker_axis`` as
+    ``make_dynabro_scan_fn`` does; the worker momenta stay replicated."""
+    if mesh is not None:
+        _check_worker_mesh(mesh, worker_axis, allow_model=False)
+    gather = _worker_gather(mesh, worker_axis)
+    step = make_momentum_step(grad_fn, cfg, lr, beta, gather)
 
     def round_fn(carry, batch, mask, key, generator):
         return step(carry[0], carry[1], batch, mask, generator), None, None
 
-    return ScanFn(round_fn, flags=False)
+    scan_fn = ScanFn(round_fn, flags=False)
+    scan_fn.gather = gather
+    scan_fn.worker_mesh = mesh
+    return scan_fn
 
 
 def run_momentum_scan(
@@ -1272,17 +1551,20 @@ def run_momentum_scan(
     worker_axis: str = "workers",
 ):
     """Compiled drop-in for ``run_momentum`` (same returns; segments,
-    ``chunk`` and ``scan_fn`` as in ``run_dynabro_scan``). ``mesh`` raises
-    ``NotImplementedError``."""
-    _refuse_unported(mesh=mesh)
+    ``chunk``, ``scan_fn`` and ``mesh``, 1-axis only, as in
+    ``run_dynabro_scan``)."""
+    if mesh is not None:
+        _check_worker_mesh(mesh, worker_axis, switcher.m, allow_model=False)
+    _check_scan_fn_mesh(scan_fn, mesh)
     if T <= 0:
         return params, []
-    scan_fn = scan_fn or make_momentum_scan_fn(grad_fn, cfg, lr, beta)
+    scan_fn = scan_fn or make_momentum_scan_fn(
+        grad_fn, cfg, lr, beta, mesh=mesh, worker_axis=worker_axis)
     masks = np.stack([switcher.mask(t) for t in range(T)])  # (T, m)
 
-    def batches(a, b):
+    def batches(a, b, row_fn=None):
         sched = _batch_schedule(sample_batches, [(t, 1) for t in range(a, b)],
-                                1, vectorize=vectorize_batches)
+                                1, vectorize=vectorize_batches, row_fn=row_fn)
         return tree_map(lambda l: l[:, :, 0], sched)  # (L, m, ...)
 
     params, _, evals = scan_fn.run(

@@ -27,7 +27,7 @@ from torch.utils._pytree import tree_leaves
 from repro_torch.core.agg_engine import agg_param_names
 from repro_torch.core.mlmc import MLMCConfig
 from repro_torch.core.robust_train import (
-    DynaBROConfig, _refuse_unported, run_dynabro, run_dynabro_scan,
+    DynaBROConfig, run_dynabro, run_dynabro_scan,
 )
 from repro_torch.core.switching import get_switcher
 from repro_torch.device import resolve_device
@@ -286,10 +286,13 @@ def run_scenario(
     chunk: int = 0,
     mesh=None,
 ) -> Dict[str, Any]:
-    """Run one grid cell end to end; returns a results row.
-    ``driver="vmap"`` routes through the one-lane sweep; ``mesh`` is not
-    ported and raises ``NotImplementedError``."""
-    _refuse_unported(mesh=mesh)
+    """Run one grid cell end to end; returns a results row. ``mesh`` (with
+    ``driver="scan"``) runs the cell through the sharded compiled driver;
+    ``driver="vmap"`` routes through the one-lane sweep."""
+    if mesh is not None and driver != "scan":
+        raise ValueError(
+            f"mesh= requires driver='scan' (the sharded compiled driver); "
+            f"got driver={driver!r}")
     if driver == "vmap":
         return run_matrix_vmapped(
             task, [sc], m=m, T=T, V=V, make_opt=make_opt, delta=delta,
@@ -302,7 +305,7 @@ def run_scenario(
     switcher = get_switcher(sc.switcher, m, seed=seed,
                             **dict(sc.switcher_kwargs))
     run = run_dynabro_scan if driver == "scan" else run_dynabro
-    kw = {"chunk": chunk} if driver == "scan" else {}
+    kw = {"chunk": chunk, "mesh": mesh} if driver == "scan" else {}
     t0 = time.perf_counter()
     params, logs, _ = run(task.grad_fn, task.params0, make_opt(), cfg,
                           switcher, task.make_sampler(m), T, seed=seed, **kw)
@@ -323,10 +326,14 @@ def run_matrix(
     """Sweep every scenario -> results table. ``driver="vmap"`` runs the
     grid as lanes of the sweep (``run_matrix_vmapped``) and is the one
     driver that takes the replicate axis (``seeds=`` / ``replicates=``) and
-    ``lane_chunk=``; ``"scan"`` / ``"legacy"`` run one driver call a
-    cell."""
+    ``lane_chunk=`` / ``lane_mesh=``; ``"scan"`` / ``"legacy"`` run one
+    driver call a cell (``"scan"`` takes the worker ``mesh=``)."""
     if kw.get("driver") == "vmap":
-        _refuse_unported(mesh=kw.get("mesh"))
+        if kw.get("mesh") is not None:
+            raise ValueError(
+                "driver='vmap' sweeps run unsharded per lane; drop mesh= "
+                "(lane_mesh= shards the lane axis) or use driver='scan' "
+                "for the sharded per-cell driver")
         kw = {k: v for k, v in kw.items() if k not in ("driver", "mesh")}
         return run_matrix_vmapped(task, scenarios, m=m, T=T, V=V, **kw)
     for rep_kw in ("seeds", "replicates", "lane_chunk", "lane_mesh"):
@@ -367,9 +374,9 @@ def run_matrix_vmapped(
     lane per replicate seed, the switcher masks, the ``random`` generator
     and the data sampler (``task.make_sampler(m, sampler_seed=...)``) each
     from that seed; the rows then carry ``final_mean`` / ``final_std`` /
-    ``final_stderr`` (``final`` the mean) and ``n_seeds``. ``lane_mesh`` is
-    not ported and raises ``NotImplementedError``."""
-    _refuse_unported(lane_mesh=lane_mesh)
+    ``final_stderr`` (``final`` the mean) and ``n_seeds``. ``lane_mesh`` (a
+    ``launch.mesh.make_lane_mesh`` mesh) shards the grid's cells over its
+    lane axis (``Session.sweep``)."""
     scs = list(scenarios)
     if not scs:
         return []
@@ -396,7 +403,8 @@ def run_matrix_vmapped(
                    seed=seed, sampler_factory=factory)
     replicated = spec.n_replicates > 1
     t0 = time.perf_counter()
-    outs = sess.sweep(spec, T, chunk=chunk, lane_chunk=lane_chunk)
+    outs = sess.sweep(spec, T, chunk=chunk, lane_chunk=lane_chunk,
+                      lane_mesh=lane_mesh)
     cells = outs if replicated else [[cell] for cell in outs]
     _wait([p for cell in cells for p, _ in cell])
     wall = (time.perf_counter() - t0) / len(scs)

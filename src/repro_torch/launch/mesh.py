@@ -1,0 +1,139 @@
+"""Device meshes for the sharded Mode A drivers, the port of the JAX
+package's ``launch/mesh.py`` over ``torch.distributed``.
+
+The port follows torch's SPMD idiom: every rank of the default process group
+runs the same program with the same arguments, and a mesh names, for each of
+its axes, the process group of the ranks that share this rank's coordinates
+on the other axes. Ranks are laid out row-major, so on a ``(lanes,
+workers)`` mesh rank r sits at ``(r // n_workers, r % n_workers)``. A mesh
+of one device needs no process group; a larger one is built on
+``torch.distributed.device_mesh.init_device_mesh`` over the default group,
+which every rank of it must have initialised (``init_process_group``) and
+enter together.
+
+The JAX package's ``set_mesh``, ``shard_map``, ``make_production_mesh``,
+``make_test_mesh``, ``worker_spec`` and ``worker_iota`` are jax API or
+serve its GSPMD path (Mode B, ROADMAP.md queue 1, 'Multi-device'); a mesh
+with a ``'model'`` axis is Mode B too.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Tuple
+
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device mesh: ``axis_names`` and their ``sizes``, and the torch
+    ``DeviceMesh`` that holds a process group per axis (None for a mesh of
+    one device, and for a mesh built by hand to check a driver's
+    validation, which needs no group). Two meshes of the same axes and sizes
+    compare equal."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    device_mesh: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def _built(self):
+        if self.device_mesh is None:
+            raise ValueError(
+                f"{self} has no process groups: build it with "
+                "make_worker_mesh / make_lane_mesh")
+        return self.device_mesh
+
+    def group(self, axis: str):
+        """This rank's process group along ``axis``."""
+        return self._built().get_group(axis)
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 on an axis of size 1)."""
+        if self.shape[axis] == 1:
+            return 0
+        coord = self._built().get_coordinate()
+        if coord is None:
+            raise ValueError(
+                f"rank {dist.get_rank()} is not in {self} (the mesh takes "
+                f"the first {self.size} ranks of the default group)")
+        return coord[self.axis_names.index(axis)]
+
+
+def world_size() -> int:
+    """The ranks of the default process group; 1 when none is initialised."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _device_type() -> str:
+    """The device type of the default group's collectives: ``cuda`` for
+    NCCL, else ``cpu`` (gloo, which also gathers CUDA tensors)."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def _make_mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+    if math.prod(sizes) == 1:
+        return Mesh(axes, sizes)
+    from torch.distributed.device_mesh import init_device_mesh
+    return Mesh(axes, sizes, init_device_mesh(_device_type(), sizes,
+                                              mesh_dim_names=axes))
+
+
+def worker_axes(mesh) -> tuple:
+    """The axes across which DynaBRO workers are laid out."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def n_workers(mesh) -> int:
+    n = 1
+    for a in worker_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def make_worker_mesh(n_devices: int = 0, axis: str = "workers",
+                     model: int = 0) -> Mesh:
+    """The 1-axis ``(workers,)`` mesh of the sharded compiled drivers:
+    ``n_devices`` ranks (0: every rank of the default group). ``n_devices=1``
+    gives the parity-contract mesh, bitwise the unsharded driver. ``model``
+    >= 1 (the GSPMD path) raises ``NotImplementedError``."""
+    if model:
+        raise NotImplementedError(
+            "make_worker_mesh(model=) builds the (workers, 'model') mesh of "
+            "the GSPMD path, which is not ported to repro_torch yet "
+            "(ROADMAP.md queue 1, 'Multi-device', Mode B)")
+    have = world_size()
+    n = n_devices or have
+    if n > have:
+        raise ValueError(f"requested {n} devices, have {have}")
+    return _make_mesh((n,), (axis,))
+
+
+def make_lane_mesh(n_lanes: int = 0, n_workers: int = 1,
+                   lane_axis: str = "lanes",
+                   worker_axis: str = "workers") -> Mesh:
+    """The 2-axis ``(lanes, workers)`` mesh of the sharded sweep: the
+    sweep's cells are split over ``lane_axis`` and, with ``n_workers`` > 1,
+    each cell's workers over ``worker_axis``. ``n_lanes=0`` takes whatever
+    the worker axis leaves over; a ``(1, 1)`` mesh is bitwise the unsharded
+    sweep."""
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    have = world_size()
+    n = n_lanes or max(1, have // n_workers)
+    if n * n_workers > have:
+        raise ValueError(
+            f"requested {n}x{n_workers} devices, have {have}")
+    return _make_mesh((n, n_workers), (lane_axis, worker_axis))
+

@@ -22,7 +22,7 @@ from repro_torch.kernels import ref as kref
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-GEOMETRY_M = [1, 2, 3, 17, 32, 64]
+GEOMETRY_M = [1, 2, 3, 16, 17, 32, 64]
 
 
 @pytest.fixture

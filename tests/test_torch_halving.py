@@ -17,6 +17,7 @@ from repro.api import specs as j_specs
 from repro.optim import optimizers as j_optim
 from repro_torch.api import specs as t_specs
 from repro_torch.core import robust_train as t_rt
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import optimizers as t_optim
 from test_torch_sweep import M, T, _sessions, _switchers
 
@@ -180,8 +181,9 @@ def test_halving_validation():
         ts.sweep_halving(spec, 0, objective=_objective)
     assert ts.sweep_halving(t_specs.SweepSpec(switchers=()), T,
                             objective=_objective) == []
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        ts.sweep_halving(spec, T, objective=_objective, lane_mesh=object())
+    with pytest.raises(ValueError, match="lanes"):
+        ts.sweep_halving(spec, T, objective=_objective,
+                         lane_mesh=Mesh(("workers",), (1,)))
     assert "sweep_halving" not in t_rt._UNPORTED
 
 

@@ -25,6 +25,7 @@ from repro_torch.core import mlmc as t_mlmc
 from repro_torch.core import robust_train as t_rt
 from repro_torch.core import switching as t_switching
 from repro_torch.data import classification as t_clf
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import optimizers as t_optim
 
 # ------------------------------------------------------------ a small task
@@ -163,17 +164,20 @@ def test_unported_keywords_raise():
     params0, grad_fn, sampler, _ = _small_task()
     cfg = _small_cfg("cwtm")
     opt = t_optim.sgd(0.1)
-    # microbatch= is ported (tests/test_torch_zoo.py); param_specs= is the
-    # JAX package's GSPMD sharding, so it waits for multi-device
-    for kw, item in [({"mesh": object()}, "Multi-device"),
+    # microbatch= and the worker meshes are ported (tests/test_torch_zoo.py,
+    # tests/test_torch_mesh.py); param_specs= and a (workers, 'model') mesh
+    # are the JAX package's GSPMD sharding, Mode B of multi-device
+    gspmd = Mesh(("workers", "model"), (1, 1))
+    for kw, item in [({"mesh": gspmd}, "Multi-device"),
                      ({"param_specs": {}}, "Multi-device")]:
         with pytest.raises(NotImplementedError, match=item):
             t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
                                   sampler, 4, **kw)
-    for kw, item in [({"sweep_mesh": object()}, "Multi-device"),
-                     ({"mesh": object()}, "Multi-device")]:
-        with pytest.raises(NotImplementedError, match=item):
-            t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, **kw)
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, mesh=gspmd)
+    fn = t_rt.make_dynabro_scan_fn(
+        grad_fn, cfg, opt, sweep_mesh=Mesh(("lanes", "workers"), (1, 1)))
+    assert fn.lane_form().lanes and fn.worker_mesh is None
     # the lane keywords are ported: they build the sweep's lane form
     for kw in ({"lane_attacks": ["none"]}, {"lane_aggregators": ["cwtm"]}):
         fn = t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, **kw)
@@ -181,11 +185,12 @@ def test_unported_keywords_raise():
         for name in ("lane_attacks", "lane_aggregators"):
             want = tuple(kw[name]) if name in kw else None
             assert getattr(fn, name) == want, name
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_rt.make_momentum_scan_fn(grad_fn, cfg, 0.1, 0.9, mesh=object())
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # the momentum drivers take 1-axis meshes only, as the JAX package's
+    with pytest.raises(ValueError, match="1-axis"):
+        t_rt.make_momentum_scan_fn(grad_fn, cfg, 0.1, 0.9, mesh=gspmd)
+    with pytest.raises(ValueError, match="1-axis"):
         t_rt.run_momentum_scan(grad_fn, params0, cfg, _switcher(), sampler, 4,
-                               lr=0.1, beta=0.9, mesh=object())
+                               lr=0.1, beta=0.9, mesh=gspmd)
 
 
 # ------------------------------------------------------------ schedules

@@ -12,6 +12,7 @@ import torch
 from _torch_tasks import jax_quadratic, noise_units
 from repro.core import scenarios as j_scen
 from repro_torch.core import scenarios as t_scen
+from repro_torch.launch.mesh import Mesh, make_worker_mesh
 
 GRID = dict(attacks=["sign_flip", ("ipm", {"eps": 0.3}), ("alie", {"z": None})],
             switchers=[("periodic", {"n_byz": 2, "K": 4}), ("static", {"n_byz": 3})],
@@ -114,10 +115,16 @@ def test_run_matrix_refusals():
     for kw in ({"seeds": (0, 1)}, {"replicates": 2}, {"lane_chunk": 2}):
         with pytest.raises(ValueError, match="driver='vmap'"):
             t_scen.run_matrix(task, grid, **KW, **kw)
+    with pytest.raises(ValueError, match="unsharded"):
+        t_scen.run_matrix(task, grid, driver="vmap",
+                          mesh=make_worker_mesh(1), **KW)
+    with pytest.raises(ValueError, match="driver='scan'"):
+        t_scen.run_scenario(task, grid[0], driver="legacy",
+                            mesh=make_worker_mesh(1), **KW)
+    # the GSPMD path's (workers, 'model') mesh is Mode B of multi-device
     with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_scen.run_matrix(task, grid, driver="vmap", mesh=object(), **KW)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_scen.run_scenario(task, grid[0], mesh=object(), **KW)
+        t_scen.run_scenario(task, grid[0],
+                            mesh=Mesh(("workers", "model"), (1, 1)), **KW)
     with pytest.raises(ValueError, match="unknown driver"):
         t_scen.run_scenario(task, grid[0], driver="nope", **KW)
     no_seed = t_scen.Task(task.params0, task.grad_fn,

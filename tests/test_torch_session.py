@@ -20,6 +20,7 @@ from repro_torch.api import session as t_session
 from repro_torch.core import mlmc as t_mlmc
 from repro_torch.core import robust_train as t_rt
 from repro_torch.core import switching as t_switching
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import optimizers as t_optim
 
 M, T, SEED = 7, 12, 3
@@ -164,13 +165,17 @@ def test_session_errors_and_unported_keywords(monkeypatch):
     with pytest.raises(ValueError, match="lr= and beta="):
         t_session.Session(cfg, grad_fn=None, params0=None, mode="momentum")
     base = dict(grad_fn=task.grad_fn, params0=task.params0, opt=t_optim.sgd(0.1))
-    # microbatch= is ported (tests/test_torch_zoo.py); param_specs= is the
-    # JAX package's GSPMD sharding, so it waits for multi-device
-    for kw, item in [({"mesh": object()}, "Multi-device"),
+    # microbatch= and the worker mesh= are ported (tests/test_torch_zoo.py,
+    # tests/test_torch_mesh.py); param_specs= and a (workers, 'model') mesh
+    # are the JAX package's GSPMD sharding, Mode B of multi-device
+    for kw, item in [({"mesh": Mesh(("workers", "model"), (1, 1)), "m": M},
+                      "Multi-device"),
                      ({"param_specs": {}}, "Multi-device"),
                      ({"guard_recompiles": True}, "lint/")]:
         with pytest.raises(NotImplementedError, match=item):
             t_session.Session(cfg, **base, **kw)
+    with pytest.raises(ValueError, match="worker count"):
+        t_session.Session(cfg, **base, mesh=Mesh(("workers",), (1,)))
     monkeypatch.setenv(t_session.GUARD_ENV, "1")
     with pytest.raises(NotImplementedError, match="lint/"):
         t_session.Session(cfg, **base)

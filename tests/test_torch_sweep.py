@@ -22,6 +22,7 @@ from repro_torch.api import specs as t_specs
 from repro_torch.core import mlmc as t_mlmc
 from repro_torch.core import robust_train as t_rt
 from repro_torch.core import switching as t_switching
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import optimizers as t_optim
 
 M, T, SEED = 7, 12, 2
@@ -179,8 +180,10 @@ def test_empty_sweeps_and_unported_options():
                                      replicates=2), 0)
     assert len(rep) == 1 and len(rep[0]) == 2
     spec = t_specs.SweepSpec(switchers=tuple(_switchers(1)))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        ts.sweep(spec, T, lane_mesh=object())
+    # lane_mesh= is ported (tests/test_torch_mesh.py): a mesh of other axes
+    # is refused as the JAX package refuses it
+    with pytest.raises(ValueError, match="lanes"):
+        ts.sweep(spec, T, lane_mesh=Mesh(("workers",), (1,)))
     mom = t_session.Session(_cfgs()[0], grad_fn=None, params0=None,
                             mode="momentum", lr=0.1, beta=0.9, m=M)
     with pytest.raises(ValueError, match="dynabro-mode"):
