@@ -127,6 +127,17 @@ sources there (``nvcc``, one process per source, all started together, into
      and (e) of ``serve_path``: 4 rounds of that model served from 17
      worker threads, the session sharing the path's scan_fn (no capture),
      bitwise equal to ``Session.run(4)``, with rounds/s and peak memory;
+     then the GSPMD path (``gspmd_path``, ``run_dynabro_scan(mesh=,
+     param_specs=plan_params(...))``): a (1, 1) ``(workers, 'model')``
+     mesh on that setting bitwise the zoo run with its launches; two gloo
+     ranks on the one card (this script with ``--gspmd-rank``) on a (1, 2)
+     mesh, the same setting, each rank holding half of most parameters,
+     the ranks bitwise equal, their logs the zoo run's, params within rtol
+     1e-5, atol 1e-6 of it, 44 ``cw_reduce`` launches a rank, every round
+     eager; four gloo ranks on a (2, 2) mesh, qwen3-0.6b at d_model 512,
+     m=16 (7 Byzantine), T=8, CWTM streamed and GeoMed stacked, each
+     against its unsharded run on rank 0; each rank's peak memory,
+     rounds/s, collectives and their ms;
      then the zoo's other families in the same setting
      (``zoo_families_path``): whisper-base at its published width and depth
      (6 + 6 layers, d_model 512, 1500 encoder frames, 113,959,936
@@ -183,6 +194,7 @@ import gc
 import inspect
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -215,12 +227,13 @@ from repro_torch import (  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
 from repro_torch.core import robust_train as rt  # noqa: E402
-from repro_torch.core.sharded import GATHERS  # noqa: E402
+from repro_torch.core.sharded import COLLECTIVES, GATHERS  # noqa: E402
 from repro_torch.data import classification as clf  # noqa: E402
 from repro_torch.serve import smoke as serve_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.launch.sharding import plan_params  # noqa: E402
 from repro_torch.models import init_params, task_for_config  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models import transformer as zoo_tf  # noqa: E402
@@ -2105,9 +2118,11 @@ def zoo_path(dev):
     the held-out loss rises in these 16 rounds, under sign_flip and without
     an attack alike (PERF.md), so the fall is held on the Mean rule's
     unattacked run and CWTM's loss is reported. Returns the kernel run's
-    launch counts and the served rounds'."""
+    launch counts, the served rounds' and the kernel run's reference for
+    ``gspmd_path``."""
     return zoo_run(dev, ZOO_ARCH, zoo_config(), phase="zoo_path",
-                   timed_runs=ZOO_TIMED_RUNS, mean_check=True, serve=True)
+                   timed_runs=ZOO_TIMED_RUNS, mean_check=True, serve=True,
+                   keep_ref=True)
 
 
 ZOO_SERVE_T = 4
@@ -2162,6 +2177,338 @@ def zoo_serve(task, dcfg, scan_fn):
     assert snap["updates_accepted"] == M * ZOO_SERVE_T, snap
     del server, sess, p_ref
     return launches
+
+
+# ------------------------------------------------ 9a. the zoo's GSPMD path
+
+GSPMD_LAYERS = 8  # of 32: zoo_path's, so its run is the unsharded reference
+GSPMD_TIMEOUT_S = 300  # each group of ranks, start-up included
+# the (2, 2) cell: a dense arch at get_reduced_config(d_model=512) (8 heads
+# over 8 KV heads; SmolLM-360M's there keeps 5 KV heads, which divide no
+# head count of 8: ROADMAP.md §3), m=16 with 7 Byzantine (trim 7)
+GSPMD_REDUCED_ARCH = "qwen3-0.6b"
+GSPMD_REDUCED_M, GSPMD_REDUCED_BYZ, GSPMD_REDUCED_T = 16, 7, 8
+GSPMD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's, test_zoo_driver.py
+# the zoo run's cw_reduce launches (T=16, seed 0: 44 aggregations of the
+# 11-leaf tree), each rank's on its blocks: PERF.md's count
+GSPMD_K1_LAUNCHES = 44
+
+
+def within(a, b, tol=GSPMD_TOL):
+    """Every leaf of ``a`` within rtol/atol of ``b``'s."""
+    return all(bool(torch.all((a[k] - b[k]).abs()
+                              <= tol["atol"] + tol["rtol"] * b[k].abs()))
+               for k in b)
+
+
+def gspmd_counted(fn, scan_fn, T):
+    """fn()'s result (a run of T rounds) and its seconds, launches, GSPMD
+    collectives (counts, host ms), graph replays and the scan_fn's eager
+    rounds."""
+    reset_launches()
+    before = dict(COLLECTIVES)
+    eager = scan_fn.eager_rounds
+    with watch_replays() as modes:
+        out, secs = timed(fn)
+    return out, {"seconds": secs, "first_run_rounds_per_s": T / secs,
+                 "launches": {k: v for k, v in LAUNCHES.items() if v},
+                 **{k: COLLECTIVES[k] - before[k]
+                    for k in ("param_gathers", "exchanges", "sums")},
+                 "collective_ms": 1e3 * (COLLECTIVES["seconds"]
+                                         - before["seconds"]),
+                 "replays": len(modes),
+                 "eager_rounds": scan_fn.eager_rounds - eager}
+
+
+def gspmd_zoo_run(dev, cfg, mesh, dcfg, microbatch=True):
+    """One ``run_dynabro_scan`` of ``cfg``'s task (seq_len 128, one sequence
+    a unit, sgd(0.05), Periodic(4), seed 0) on ``mesh`` with
+    ``plan_params(fsdp=True)``'s specs (``mesh=None``: unsharded);
+    (params, logs, counts)."""
+    task = task_for_config(cfg, seq_len=ZOO_SEQ, unit_batch=1, seed=0,
+                           device=dev)
+    m, T = dcfg.mlmc.m, dcfg.mlmc.T
+    n_byz = GSPMD_REDUCED_BYZ if m == GSPMD_REDUCED_M else N_BYZ
+    specs = (None if mesh is None
+             else plan_params(cfg, mesh, fsdp=True, dtype=torch.float32)[0])
+    scan_fn = make_dynabro_scan_fn(task.grad_fn, dcfg, sgd(0.05), mesh=mesh,
+                                   param_specs=specs, microbatch=microbatch)
+
+    def run():
+        return run_dynabro_scan(
+            task.grad_fn, task.params0, sgd(0.05), dcfg,
+            get_switcher("periodic", m, n_byz=n_byz, K=4), task.make_sampler(m),
+            T, seed=0, scan_fn=scan_fn, mesh=mesh, param_specs=specs,
+            microbatch=microbatch)
+    (p, logs, _), counts = gspmd_counted(run, scan_fn, T)
+    if mesh is None:  # graphs kept: the rate of a run after the capture
+        counts["rerun_s"] = timed(run)[1]
+        counts["rerun_rounds_per_s"] = T / counts["rerun_s"]
+    return p, [vars(l) for l in logs], counts
+
+
+def gspmd_reduced_cfg(rule):
+    return DynaBROConfig(
+        mlmc=MLMCConfig(T=GSPMD_REDUCED_T, m=GSPMD_REDUCED_M, V=5.0, option=1,
+                        kappa=1.0, j_cap=3),
+        aggregator=rule, delta=GSPMD_REDUCED_BYZ / GSPMD_REDUCED_M + 1e-3,
+        attack="sign_flip")
+
+
+GSPMD_REDUCED_CASES = (("cwtm", True), ("geomed", False))
+
+
+def gspmd_rank(case, world, rank, tmp):
+    """One rank of ``gspmd_path``'s gloo groups on the card. ``smollm``: a
+    (1, 2) mesh, SmolLM-360M at its published width, ``GSPMD_LAYERS``
+    layers, zoo_path's setting, CWTM streamed; its params go to
+    ``<tmp>/params<rank>.pt``. ``reduced``: a (2, 2) mesh,
+    ``GSPMD_REDUCED_ARCH`` at ``get_reduced_config(d_model=512)``, m=16
+    with 7 Byzantine, CWTM streamed and GeoMed stacked, each also unsharded on
+    rank 0 (the other ranks waiting), the ranks' params compared there.
+    Writes its rows to ``<tmp>/rank<rank>.json``, each with the rank's
+    wall seconds from its spawn to this call (``startup_s``: the imports)
+    and from being let go to the row (``rank_s``)."""
+    t_entry = time.time()
+    startup_s = t_entry - float(os.environ["GSPMD_SPAWN_T"])
+    while not Path(tmp, "go").exists():  # gspmd_finish lets the ranks go
+        assert time.time() - t_entry < GSPMD_TIMEOUT_S, "never let go"
+        time.sleep(0.05)
+    t_entry = time.time()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=world)
+    dev = torch.device("cuda", 0)
+    rows = []
+    try:
+        if case == "smollm":
+            mesh = make_worker_mesh(1, model=2)
+            torch.cuda.reset_peak_memory_stats(dev)
+            p, logs, counts = gspmd_zoo_run(dev, zoo_config(GSPMD_LAYERS),
+                                            mesh, zoo_dyn_cfg())
+            alloc, reserved = peak_gb(dev)
+            torch.save({k: v.cpu() for k, v in p.items()},
+                       Path(tmp, f"params{rank}.pt"))
+            rows.append({"case": "smollm (1, 2)", "rank": rank, "logs": logs,
+                         "sharded": counts, "peak_allocated_gb": alloc,
+                         "peak_reserved_gb": reserved})
+            rows[-1].update(startup_s=startup_s, rank_s=time.time() - t_entry)
+        else:
+            mesh = make_worker_mesh(2, model=2)
+            cfg = get_reduced_config(GSPMD_REDUCED_ARCH, d_model=REDUCED_D)
+            for rule, microbatch in GSPMD_REDUCED_CASES:
+                dcfg = gspmd_reduced_cfg(rule)
+                torch.distributed.barrier()
+                p, logs, counts = gspmd_zoo_run(dev, cfg, mesh, dcfg,
+                                                microbatch)
+                got = [None] * world
+                torch.distributed.all_gather_object(
+                    got, {k: v.cpu() for k, v in p.items()})
+                row = {"case": f"reduced (2, 2) {rule}", "rank": rank,
+                       "microbatch": microbatch, "logs": logs,
+                       "sharded": counts,
+                       "ranks_bitwise_equal": all(bitwise(g, got[0])
+                                                  for g in got)}
+                if rank == 0:
+                    q, ref_logs, ref_counts = gspmd_zoo_run(
+                        dev, cfg, None, dcfg, microbatch)
+                    row.update(unsharded=ref_counts, unsharded_logs=ref_logs,
+                               max_param_diff=max_diff(p, q),
+                               max_ulps=ulps(p, q), within_tol=within(p, q),
+                               bitwise_unsharded=bitwise(p, q),
+                               finite=all(bool(torch.isfinite(v).all())
+                                          for v in p.values()))
+                rows.append(row)
+                row.update(startup_s=startup_s, rank_s=time.time() - t_entry)
+                del p
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(rows))
+
+
+def gspmd_start(case, world, env=None):
+    """Start ``gspmd_rank(case)`` as ``world`` processes of this script;
+    each imports, then waits for ``gspmd_finish`` to let it go, so the
+    imports overlap the parent's work. Returns (processes, the
+    ``TemporaryDirectory`` the ranks write to)."""
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ if env is None else env,
+               GSPMD_SPAWN_T=repr(time.time()))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gspmd-rank", case,
+         str(world), str(r), tmp.name], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    return procs, tmp
+
+
+def gspmd_finish(case, procs, tmp):
+    """Let ``gspmd_start``'s ranks go and wait for them (a rank that fails
+    or outlasts ``GSPMD_TIMEOUT_S`` fails the phase, and every rank is
+    ended); returns each rank's rows and ``tmp``, for the caller to clean
+    up."""
+    Path(tmp.name, "go").touch()
+    try:
+        logs = [p.communicate(timeout=GSPMD_TIMEOUT_S)[0] for p in procs]
+    finally:
+        gspmd_end(procs)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"gspmd {case} rank {r} failed:\n{log[-6000:]}"
+    return [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
+            for r in range(len(procs))], tmp
+
+
+def gspmd_end(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def gspmd_mesh11(dev, zoo_ref):
+    """(a) of ``gspmd_path``: a (1, 1) mesh on ``zoo_path``'s setting."""
+    assert GSPMD_LAYERS == ZOO_LAYERS, "zoo_ref is the 8-layer run"
+    p, logs, counts = gspmd_zoo_run(dev, zoo_config(),
+                                    make_worker_mesh(1, model=1), zoo_dyn_cfg())
+    row = {"phase": "gspmd_path", "case": "smollm (1, 1)", "T": ZOO_T, "m": M,
+           "layers": ZOO_LAYERS, "bitwise_equal_mesh_none": bitwise(
+               {k: v.cpu() for k, v in p.items()}, zoo_ref["params"]),
+           "logs_equal": logs == zoo_ref["logs"], "run": counts,
+           "mesh_none_launches": zoo_ref["launches"],
+           "mesh_none_first_rounds_per_s": zoo_ref["first_rounds_per_s"]}
+    emit(row)
+    assert row["bitwise_equal_mesh_none"] and row["logs_equal"], row
+    assert counts["launches"] == zoo_ref["launches"], row
+    assert counts["replays"] == ZOO_T and counts["eager_rounds"] == 0, row
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["launches"]
+
+
+def gspmd_smollm(dev, zoo_ref, started):
+    """(b) of ``gspmd_path``: two gloo ranks on a (1, 2) mesh, ``started``
+    by ``gspmd_start``."""
+    t0 = time.perf_counter()
+    parent_gb = torch.cuda.memory_reserved(dev) / 1e9
+    ranks, tmp = gspmd_finish("smollm", *started)
+    ranks_s = time.perf_counter() - t0
+    with tmp:
+        params = [torch.load(Path(tmp.name, f"params{r}.pt"))
+                  for r in range(2)]
+    ref = zoo_ref["params"]
+    rows = [r[0] for r in ranks]
+    row = {"phase": "gspmd_path", "case": "smollm (1, 2)", "ranks": 2,
+           "T": ZOO_T, "m": M, "layers": GSPMD_LAYERS,
+           "d_model": zoo_config().d_model,
+           "ranks_bitwise_equal": bitwise(params[1], params[0]),
+           "logs_equal_mesh_none": all(r["logs"] == zoo_ref["logs"]
+                                       for r in rows),
+           "bitwise_mesh_none": bitwise(params[0], ref),
+           "max_param_diff": max_diff(params[0], ref),
+           "max_ulps": ulps(params[0], ref),
+           "within_tol": within(params[0], ref), "tol": GSPMD_TOL,
+           "per_rank": [{k: r[k] for k in ("rank", "sharded",
+                                            "peak_allocated_gb",
+                                            "peak_reserved_gb", "startup_s",
+                                            "rank_s")}
+                        for r in rows],
+           # a rank's rate is its one run's, warm-up included: beside
+           # mesh=None's first run (its captures included) and its reruns
+           "mesh_none_first_rounds_per_s": zoo_ref["first_rounds_per_s"],
+           "mesh_none_rerun_rounds_per_s": zoo_ref["rounds_per_s"],
+           "parent_reserved_gb": parent_gb, "ranks_s": ranks_s,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    del params
+    assert row["ranks_bitwise_equal"] and row["logs_equal_mesh_none"], row
+    assert row["within_tol"], row
+    for r in rows:
+        c = r["sharded"]
+        assert c["launches"] == {"cw_reduce": GSPMD_K1_LAUNCHES}, r
+        assert c["replays"] == 0 and c["eager_rounds"] == ZOO_T, r
+    return rows[0]["sharded"]["launches"]
+
+
+def gspmd_reduced(started):
+    """(c) of ``gspmd_path``: four gloo ranks on a (2, 2) mesh, ``started``
+    by ``gspmd_start``."""
+    t0 = time.perf_counter()
+    ranks, tmp = gspmd_finish("reduced", *started)
+    tmp.cleanup()
+    ranks_s = time.perf_counter() - t0
+    by_path = {}
+    for rows in zip(*ranks):
+        r0 = rows[0]
+        row = {"phase": "gspmd_path", "case": r0["case"], "ranks": 4,
+               "arch": GSPMD_REDUCED_ARCH, "T": GSPMD_REDUCED_T,
+               "m": GSPMD_REDUCED_M,
+               "d_model": REDUCED_D, "microbatch": r0["microbatch"],
+               **{k: r0[k] for k in ("unsharded", "max_param_diff", "max_ulps",
+                                     "within_tol", "bitwise_unsharded",
+                                     "finite")},
+               "logs_equal": r0["logs"] == r0["unsharded_logs"],
+               "ranks_bitwise_equal": all(r["ranks_bitwise_equal"]
+                                          for r in rows),
+               "per_rank": [{"rank": r["rank"], **r["sharded"],
+                             "startup_s": r["startup_s"],
+                             "rank_s": r["rank_s"]} for r in rows],
+               "tol": GSPMD_TOL}
+        emit(row)
+        assert row["ranks_bitwise_equal"] and row["logs_equal"], row
+        assert row["within_tol"] and row["finite"], row
+        for r in rows:
+            c = r["sharded"]
+            assert c["launches"] == r0["unsharded"]["launches"], (r["rank"], c)
+            assert c["replays"] == 0 and c["eager_rounds"] == GSPMD_REDUCED_T, c
+        by_path[f"gspmd {r0['case']}"] = r0["sharded"]["launches"]
+    emit({"phase": "gspmd_path", "case": "reduced (2, 2)", "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t0})
+    return by_path
+
+
+def gspmd_path(dev, zoo_ref):
+    """The model zoo's GSPMD path on the card (``run_dynabro_scan(mesh=,
+    param_specs=)`` on ``(workers, 'model')`` meshes, ``plan_params``'s
+    specs, every round eager):
+
+    (a) a (1, 1) mesh on ``zoo_path``'s setting (SmolLM-360M, 8 layers,
+        m=17, CWTM streamed): bitwise ``zoo_ref`` (zoo_path's kernel run)
+        with its launches, every round a graph replay;
+    (b) two gloo ranks on a (1, 2) mesh, the same setting at
+        ``GSPMD_LAYERS``: the ranks bitwise equal, logs equal to
+        ``zoo_ref``'s, params within rtol 1e-5, atol 1e-6 of them, each
+        rank's ``GSPMD_K1_LAUNCHES`` cw_reduce launches, no replay, T eager
+        rounds; each rank's peak GB, rounds/s, collectives and their ms;
+    (c) four gloo ranks on a (2, 2) mesh, ``GSPMD_REDUCED_ARCH`` at
+        d_model 512, m=16, 7 Byzantine, T=8: CWTM streamed (K1) and GeoMed
+        stacked (K4, K6), the ranks bitwise, rank 0's logs equal to its
+        unsharded run's, params within the same tolerance, each rank's
+        launches the unsharded run's.
+
+    The six rank processes start first and import while (a) runs (so
+    (a)'s rate is taken beside their imports); (b)'s two ranks then run
+    alone on the card, then (c)'s four. Returns each path's launches (a
+    rank's)."""
+    t0 = time.perf_counter()
+    smollm = gspmd_start("smollm", 2, dict(
+        os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    reduced = gspmd_start("reduced", 4)
+    try:
+        by_path = {"gspmd (1, 1)": gspmd_mesh11(dev, zoo_ref),
+                   "gspmd smollm (1, 2)": gspmd_smollm(dev, zoo_ref, smollm)}
+        by_path.update(gspmd_reduced(reduced))
+    finally:
+        for procs, tmp in (smollm, reduced):
+            gspmd_end(procs)
+            tmp.cleanup()
+    emit({"phase": "gspmd_path", "seconds": time.perf_counter() - t0})
+    return by_path
 
 
 # ------------------------------------------------ 9b. the zoo's families
@@ -2230,7 +2577,7 @@ def schedule_bytes(scan_fn):
 
 
 def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
-            serve=False, remat_pair=False):
+            serve=False, remat_pair=False, keep_ref=False):
     """DynaBRO over the model ``cfg`` (seq_len 128, one sequence a unit,
     m=17, 8 Byzantine under sign_flip and Periodic(4), CWTM at trim 8,
     ``MLMCConfig(T=16, V=5, kappa=1, j_cap=3)``, sgd(0.05),
@@ -2247,7 +2594,9 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
     through ``eval_fn`` after every round), a differing round failing with
     its round and its least gap; with ``serve``, ``zoo_serve`` on the
     kernel run's scan_fn; with ``remat_pair``, ``remat_compiled`` after the
-    kernel runs (``forward``'s default, remat=True, is the kernel run).
+    kernel runs (``forward``'s default, remat=True, is the kernel run);
+    with ``keep_ref``, the kernel run's params (on the host), logs, launches
+    and rounds/s are returned last, for ``gspmd_path``.
     Prints, as the ``phase`` row, rounds/s (runs after the first), each
     level's warm-up and capture seconds, the peak memory and the batch
     schedule's bytes. Returns the kernel run's launch
@@ -2387,10 +2736,16 @@ def zoo_run(dev, arch, cfg, *, phase, timed_runs=1, mean_check=False,
     assert [vars(l) for l in l3] == [vars(l) for l in l1], f"{arch}: plain logs"
     assert max(rel.values()) <= ZOO_PLAIN_TOL, (arch, rel)
     assert routing is None or not routing["flips"], (arch, routing["flips"])
+    ref = ({"params": {k: v.cpu() for k, v in p1.items()},
+            "logs": [vars(l) for l in l1], "launches": launches,
+            "rounds_per_s": row["rounds_per_s"],
+            "first_rounds_per_s": ZOO_T / first_s} if keep_ref else None)
     del task, p1
     gc.collect()
     torch.cuda.empty_cache()
-    return (launches, serve_launches) if serve else launches
+    out = (launches, serve_launches) if serve else (launches,)
+    out += (ref,) if keep_ref else ()
+    return out if len(out) > 1 else out[0]
 
 
 def zoo_families_path(dev):
@@ -3109,7 +3464,9 @@ def main():
     for grid in ("grid1", "grid2"):
         by_path[f"halving {grid}"] = halving_path(task, grid)
     by_path.update(mesh_path(task))
-    by_path["zoo"], by_path["serve zoo"] = zoo_path(dev)
+    by_path["zoo"], by_path["serve zoo"], zoo_ref = zoo_path(dev)
+    by_path.update(gspmd_path(dev, zoo_ref))
+    del zoo_ref
     by_path.update(zoo_families_path(dev))
     remat_path(dev)
     t_decode = time.perf_counter()
@@ -3185,5 +3542,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of mesh_path
         mesh_rank(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--gspmd-rank"]:  # one rank of gspmd_path
+        gspmd_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     else:
         main()

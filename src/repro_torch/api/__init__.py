@@ -18,7 +18,9 @@ Quickstart::
 ``make_worker_mesh`` / ``make_lane_mesh`` build the meshes of the sharded
 drivers (``mesh=``, ``lane_mesh=``) over ``torch.distributed``: every rank
 of the default process group calls the same driver with the same
-arguments.
+arguments. ``make_worker_mesh(model=)`` builds the ``(workers, 'model')``
+mesh of the model zoo's GSPMD path, whose ``param_specs=`` come from
+``repro_torch.launch.sharding.plan_params``.
 """
 from repro_torch.api.session import (
     RoundInputs, RoundSchedule, Session, StepInfo, build_session,

@@ -130,10 +130,14 @@ class Session:
     ``mesh`` (a 1-axis worker mesh, ``launch.mesh.make_worker_mesh``) runs
     the compiled driver and ``step`` sharded over ``worker_axis``
     (``make_dynabro_scan_fn``); it needs the worker count (``switcher=`` or
-    ``m=``), divisible by the axis, and the per-round driver refuses it.
-    ``param_specs``, a ``(workers, 'model')`` mesh and
-    ``guard_recompiles=True`` are not ported and raise
-    ``NotImplementedError`` naming their ROADMAP.md item; ``nan_tripwire``
+    ``m=``), divisible by the axis, and the per-round driver refuses it. A
+    2-axis ``(workers, 'model')`` mesh (dynabro mode) takes the GSPMD path
+    with ``param_specs`` (``launch.sharding.plan_params``'s): there
+    ``init_carry`` places the params per their specs, so its carries, and
+    ``step``'s, hold this rank's blocks (``scan_fn.full(carry[0])`` gathers
+    the full params), while ``run`` returns full params.
+    ``guard_recompiles=True`` is not ported and raises
+    ``NotImplementedError`` naming its ROADMAP.md item; ``nan_tripwire``
     (None: the ``REPRO_NAN_TRIPWIRE`` env var) reads the params back after
     each step and run and raises on a non-finite value.
     """
@@ -159,8 +163,8 @@ class Session:
             raise ValueError("momentum sessions need lr= and beta=")
         if guard_recompiles is None:
             guard_recompiles = _env_on(GUARD_ENV)
-        rt._refuse_unported(param_specs=param_specs,
-                            guard_recompiles=guard_recompiles)
+        rt._refuse_unported(guard_recompiles=guard_recompiles)
+        rt._check_param_specs(mesh, param_specs)
         self.cfg = cfg
         self.grad_fn = grad_fn
         self.params0 = params0
@@ -174,6 +178,7 @@ class Session:
         self.vectorize_batches = vectorize_batches
         self.mesh = mesh
         self.worker_axis = worker_axis
+        self.param_specs = param_specs
         self.microbatch = microbatch
         self.m = m if m is not None else (switcher.m if switcher else None)
         self.nan_tripwire = nan_tripwire
@@ -211,7 +216,8 @@ class Session:
             if self.mode == "dynabro":
                 self._scan_fn = rt.make_dynabro_scan_fn(
                     self.grad_fn, self.cfg, self.opt, mesh=self.mesh,
-                    worker_axis=self.worker_axis, microbatch=self.microbatch)
+                    worker_axis=self.worker_axis,
+                    param_specs=self.param_specs, microbatch=self.microbatch)
             else:
                 self._scan_fn = rt.make_momentum_scan_fn(
                     self.grad_fn, self.cfg, self.lr, self.beta,
@@ -250,9 +256,13 @@ class Session:
     def init_carry(self):
         """The carry at round 0: ``(params, opt_state)`` (dynabro) or
         ``(params, worker_momenta)`` (momentum), followed, when the attack
-        draws, by the generator's state at round 0."""
+        draws, by the generator's state at round 0. On the GSPMD path the
+        params are placed per their specs: the rank's blocks, and the
+        optimizer state of those."""
         params = self.params0
         if self.mode == "dynabro":
+            if self.mesh is not None and "model" in self.mesh.axis_names:
+                params = self.scan_fn.place(params)
             carry = (params, self.opt.init(params))
         else:
             carry = (params, rt._zero_momenta(params, self.m))
@@ -312,6 +322,7 @@ class Session:
         common = dict(seed=self.seed, eval_fn=eval_fn, eval_every=eval_every)
         sharding = dict(mesh=self.mesh, worker_axis=self.worker_axis)
         if self.mode == "dynabro":
+            sharding["param_specs"] = self.param_specs
             if driver == "legacy":
                 out = rt.run_dynabro(self.grad_fn, self.params0, self.opt,
                                      self.cfg, self.switcher,

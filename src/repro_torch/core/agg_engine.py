@@ -186,22 +186,35 @@ def tree_cw_reduce_lanes(stacked: Tree, mode: str, trim=0, *,
             .to(stacked[k].dtype) for k, o in zip(keys, outs)}
 
 
-def tree_pairwise_sqdist(stacked: Tree, *, backend: str = "auto") -> torch.Tensor:
-    """Global (m, m) squared distances summed over per-leaf contributions."""
-    parts = [pairwise_sqdist(_as_mat(stacked[k]), backend=backend)
-             for k in sorted(stacked)]
-    return torch.clamp(sum(parts), min=0.0)
+def _leaf_total(parts: Dict[str, torch.Tensor], leaf_sum) -> torch.Tensor:
+    """The per-leaf partials summed in sorted key order, or by
+    ``leaf_sum`` (a sharded round's ``core/sharded.ShardPlan.total``, over
+    every rank's blocks of the leaves)."""
+    if leaf_sum is not None:
+        return leaf_sum(parts)
+    return sum(parts[k] for k in sorted(parts))
 
 
-def tree_cross_sqdist(stacked: Tree, z: Tree, *,
-                      backend: str = "auto") -> torch.Tensor:
+def tree_pairwise_sqdist(stacked: Tree, *, backend: str = "auto",
+                         leaf_sum=None) -> torch.Tensor:
+    """Global (m, m) squared distances summed over per-leaf contributions.
+    ``leaf_sum`` sums the leaves' partials where the leaves are blocks of
+    sharded parameters (None: the leaves are whole)."""
+    parts = {k: pairwise_sqdist(_as_mat(stacked[k]), backend=backend)
+             for k in sorted(stacked)}
+    return torch.clamp(_leaf_total(parts, leaf_sum), min=0.0)
+
+
+def tree_cross_sqdist(stacked: Tree, z: Tree, *, backend: str = "auto",
+                      leaf_sum=None) -> torch.Tensor:
     """Global (m,) squared distances from the m stacked entries to point z
-    (a dict shaped like one worker's entry), summed per leaf."""
-    parts = [cross_sqdist(_as_mat(stacked[k]),
-                          z[k].reshape(1, -1).to(torch.float32).contiguous(),
-                          backend=backend)[:, 0]
-             for k in sorted(stacked)]
-    return torch.clamp(sum(parts), min=0.0)
+    (a dict shaped like one worker's entry), summed per leaf (``leaf_sum``
+    as in ``tree_pairwise_sqdist``)."""
+    parts = {k: cross_sqdist(_as_mat(stacked[k]),
+                             z[k].reshape(1, -1).to(torch.float32).contiguous(),
+                             backend=backend)[:, 0]
+             for k in sorted(stacked)}
+    return torch.clamp(_leaf_total(parts, leaf_sum), min=0.0)
 
 
 def tree_weighted_combine(stacked: Tree, w: torch.Tensor, *,
@@ -266,7 +279,11 @@ class Aggregator:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.tree({"x": torch.as_tensor(x).to(torch.float32)})["x"]
 
-    def tree(self, stacked: Tree) -> Tree:
+    def tree(self, stacked: Tree, leaf_sum=None) -> Tree:
+        """The aggregate of ``stacked``. ``leaf_sum`` sums per-leaf partial
+        statistics where the leaves are this rank's blocks of sharded
+        parameters (``core/sharded.ShardPlan.total``); None: the leaves are
+        whole. Coordinate-wise rules read none."""
         raise NotImplementedError
 
     def leaf(self, l: torch.Tensor) -> torch.Tensor:
@@ -292,7 +309,7 @@ class CoordinateWiseRule(Aggregator):
     def leaf(self, l: torch.Tensor) -> torch.Tensor:
         return self.tree({"leaf": l})["leaf"]
 
-    def tree(self, stacked: Tree) -> Tree:
+    def tree(self, stacked: Tree, leaf_sum=None) -> Tree:
         if not stacked:
             return {}
         m = next(iter(stacked.values())).shape[0]
@@ -308,8 +325,9 @@ class GeometryRule(Aggregator):
     def _weights(self, d2: torch.Tensor) -> torch.Tensor:  # (m, m) -> (m,)|(m, m)
         raise NotImplementedError
 
-    def tree(self, stacked: Tree) -> Tree:
-        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+    def tree(self, stacked: Tree, leaf_sum=None) -> Tree:
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend,
+                                  leaf_sum=leaf_sum)
         return tree_weighted_combine(stacked, self._weights(d2),
                                      backend=self.backend)
 

@@ -126,11 +126,12 @@ def _mfm_weights(d2: torch.Tensor, tau) -> torch.Tensor:
 
 
 def _geomed_tree(stacked: Tree, iters, eps, backend: str,
-                 unroll: Optional[int] = None) -> Tree:
+                 unroll: Optional[int] = None, leaf_sum=None) -> Tree:
     """``iters`` Weiszfeld iterations from the mean, the iterate in float32
     throughout and cast back to each leaf's dtype at the end. An int
     ``iters`` runs that many steps; a tensor ``iters`` (the uniform form's)
-    runs ``unroll`` steps, step i kept where i < iters."""
+    runs ``unroll`` steps, step i kept where i < iters. ``leaf_sum`` sums
+    each step's distance partials over sharded leaves' blocks."""
     m = next(iter(stacked.values())).shape[0]
     dev = next(iter(stacked.values())).device
     static = not isinstance(iters, torch.Tensor)
@@ -138,7 +139,7 @@ def _geomed_tree(stacked: Tree, iters, eps, backend: str,
         stacked, torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev),
         backend=backend, out_dtype=torch.float32)
     for i in range(iters if static else unroll):
-        d2 = tree_cross_sqdist(stacked, z, backend=backend)
+        d2 = tree_cross_sqdist(stacked, z, backend=backend, leaf_sum=leaf_sum)
         w = 1.0 / torch.sqrt(d2 + eps)
         zn = tree_weighted_combine(stacked, w / w.sum(), backend=backend,
                                    out_dtype=torch.float32)
@@ -212,8 +213,9 @@ class GeoMed(Aggregator):
         self.iters = iters
         self.eps = eps
 
-    def tree(self, stacked):
-        return _geomed_tree(stacked, self.iters, self.eps, self.backend)
+    def tree(self, stacked, leaf_sum=None):
+        return _geomed_tree(stacked, self.iters, self.eps, self.backend,
+                            leaf_sum=leaf_sum)
 
 
 class NNM(GeometryRule):
@@ -232,8 +234,9 @@ class NNM(GeometryRule):
         m = d2.shape[0]
         return _nnm_weights(d2, m - count_ceil(self.delta * m))
 
-    def tree(self, stacked):
-        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+    def tree(self, stacked, leaf_sum=None):
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend,
+                                  leaf_sum=leaf_sum)
         w = self._weights(d2)
         if isinstance(self.base, CoordinateWiseRule):
             # coordinate-wise base: mix+reduce as one primitive, the (m, d)
@@ -242,7 +245,7 @@ class NNM(GeometryRule):
                                        trim=self.base.trim(d2.shape[0]),
                                        backend=self.backend)
         mixed = tree_weighted_combine(stacked, w, backend=self.backend)
-        return self.base.tree(mixed)
+        return self.base.tree(mixed, leaf_sum=leaf_sum)
 
 
 class MFM(GeometryRule):
@@ -259,11 +262,12 @@ class MFM(GeometryRule):
         """MFM of the rows of one (m, ...) stack, in float32."""
         return self.tree({"x": x.to(torch.float32)}, tau)["x"]
 
-    def tree(self, stacked, tau: Optional[float] = None):
+    def tree(self, stacked, tau: Optional[float] = None, leaf_sum=None):
         tau = tau if tau is not None else self.tau
         if tau is None:
             raise ValueError("MFM needs a threshold: pass tau")
-        d2 = tree_pairwise_sqdist(stacked, backend=self.backend)
+        d2 = tree_pairwise_sqdist(stacked, backend=self.backend,
+                                  leaf_sum=leaf_sum)
         return tree_weighted_combine(stacked, _mfm_weights(d2, tau),
                                      backend=self.backend)
 

@@ -29,6 +29,12 @@ DynaBRO driver's ``microbatch`` form streams a round's units through three
 accumulators instead of the (m, 2^J, ...) gradient stack (the model zoo's
 path, ``models/zoo.py``); its ``random`` draws come unit by unit.
 
+On a ``(workers, 'model')`` mesh the compiled DynaBRO driver takes the
+model zoo's GSPMD path (``_gspmd_scan_fn``): each rank keeps its blocks of
+the parameters, gathers them for the gradients of its block of workers,
+exchanges the worker stacks for every worker at its blocks, and attacks,
+aggregates and updates those, its rounds eager on a card too.
+
 The lane-batched sweep (``run_dynabro_scan_sweep``) runs C cells that
 share the level plan and the batches as lanes of one compiled round: each
 lane's per-worker gradients, the attacks and rules per lane group from
@@ -98,53 +104,80 @@ def _per_worker_grads(grad_fn: GradFn, params, batches):
     return vmap(g1, in_dims=(None, 0))(params, batches)
 
 
-def _attack_stack(cfg: DynaBROConfig, grads, masks, generator=None):
+def _random_on_blocks(cfg: DynaBROConfig, plan, stacked, mask, generator,
+                      lead: int):
+    """The ``random`` attack on a sharded round's stack of parameter blocks
+    (``lead`` leading dims): each leaf's whole noise drawn from
+    ``generator`` as the unsharded round draws it, leaves in sorted order,
+    and this rank's block of it kept (a copy, so the draw is freed)."""
+    noise = {}
+    for k in sorted(stacked):
+        v = stacked[k]
+        full = torch.randn(plan.full_shape(k, v.shape, lead),
+                           generator=generator, dtype=F32, device=v.device)
+        noise[k] = plan.block(k, full, lead).clone(
+            memory_format=torch.contiguous_format)
+        del full
+    scale = (cfg.attack_kwargs or {}).get("scale", 10.0)  # random_noise's
+    return attacks_lib.apply_noise(stacked, mask, noise, scale)
+
+
+def _attack_stack(cfg: DynaBROConfig, grads, masks, generator=None, plan=None):
     """grads: (m, n, ...) leaves; masks: (n, m) bool -> attacked grads. The
     attack runs once per within-round computation k with that k's mask:
     mapped over k by vmap, or, for an attack that draws noise, on the whole
-    (n, m, ...) stack at once from ``generator``."""
+    (n, m, ...) stack at once from ``generator`` (under a ``plan``, the
+    GSPMD path, the whole leaves' draw narrowed to the rank's blocks)."""
     atk = attacks_lib.get_attack(cfg.attack, **(cfg.attack_kwargs or {}))
     swapped = {k: torch.swapaxes(v, 0, 1) for k, v in grads.items()}  # (n, m, ...)
-    if cfg.attack in attacks_lib.STACK_ATTACKS:
+    if cfg.attack in attacks_lib.STACK_ATTACKS and plan is not None:
+        attacked = _random_on_blocks(cfg, plan, swapped, masks, generator, 2)
+    elif cfg.attack in attacks_lib.STACK_ATTACKS:
         attacked = atk(swapped, masks, generator=generator)
     else:
         attacked = vmap(atk)(swapped, masks)
     return {k: torch.swapaxes(v, 0, 1) for k, v in attacked.items()}
 
 
-def _aggregate(cfg: DynaBROConfig, stacked, n: int):
+def _aggregate(cfg: DynaBROConfig, stacked, n: int, plan=None):
     """Robustly aggregate a worker-stacked parameter dict whose entries are
-    means of ``n`` unit gradients; MFM's threshold scales as 1/√n."""
+    means of ``n`` unit gradients; MFM's threshold scales as 1/√n. Under a
+    ``plan`` (the GSPMD path) the leaves are the rank's parameter blocks and
+    the rules' distances are summed over every rank's blocks."""
     kw = dict(cfg.aggregator_kwargs or {})
     delta = kw.pop("delta", cfg.delta)
+    leaf_sum = None if plan is None else plan.total
     if cfg.aggregator == "mfm":
         tau = kw.pop("tau", None)
         agg = MFM(backend=cfg.agg_backend, **kw)
-        return agg.tree(stacked, tau=cfg.mlmc.mfm_tau(n) if tau is None else tau)
+        return agg.tree(stacked, tau=cfg.mlmc.mfm_tau(n) if tau is None else tau,
+                        leaf_sum=leaf_sum)
     agg = get_aggregator(cfg.aggregator, delta=delta, backend=cfg.agg_backend,
                          **kw)
-    return agg.tree(stacked)
+    return agg.tree(stacked, leaf_sum=leaf_sum)
 
 
 def _combine_from_levels(cfg: DynaBROConfig, g0_stack, gh, gbar_all, n: int,
-                         j: int):
+                         j: int, plan=None):
     """Aggregate the per-worker level means and apply the MLMC combine.
     g0_stack / gh / gbar_all are (m, ...) dicts: each worker's level-0 unit,
     first-half mean and full mean, means of 1, n//2 and n unit gradients;
-    ``gh`` is None whenever the MLMC branch below is dead."""
+    ``gh`` is None whenever the MLMC branch below is dead. Under a ``plan``
+    the correction's norm is summed over every rank's blocks."""
+    norm_fn = None if plan is None else plan.norm
     if cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max:
-        g0 = _aggregate(cfg, g0_stack, 1)
-        gjm1 = _aggregate(cfg, gh, n // 2)
-        gj = _aggregate(cfg, gbar_all, n)
-        return mlmc_combine(g0, gjm1, gj, j, cfg.mlmc)
-    g0 = _aggregate(cfg, g0_stack, 1)
+        g0 = _aggregate(cfg, g0_stack, 1, plan)
+        gjm1 = _aggregate(cfg, gh, n // 2, plan)
+        gj = _aggregate(cfg, gbar_all, n, plan)
+        return mlmc_combine(g0, gjm1, gj, j, cfg.mlmc, norm_fn=norm_fn)
+    g0 = _aggregate(cfg, g0_stack, 1, plan)
     g, info = mlmc_combine(g0, None, None, cfg.mlmc.j_max + 1, cfg.mlmc)
     if not cfg.use_mlmc:  # plain robust SGD on the full mini-batch
-        g = _aggregate(cfg, gbar_all, n)
+        g = _aggregate(cfg, gbar_all, n, plan)
     return g, info
 
 
-def _combine_levels(cfg: DynaBROConfig, grads, j: int):
+def _combine_levels(cfg: DynaBROConfig, grads, j: int, plan=None):
     """Slice the attacked (m, n, ...) stack into the three level means and
     combine."""
     n = next(iter(grads.values())).shape[1]
@@ -153,11 +186,12 @@ def _combine_levels(cfg: DynaBROConfig, grads, j: int):
     gh = None
     if cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max:
         gh = {k: v[:, : n // 2].mean(1) for k, v in grads.items()}
-    return _combine_from_levels(cfg, g0_stack, gh, gbar_all, n, j)
+    return _combine_from_levels(cfg, g0_stack, gh, gbar_all, n, j, plan)
 
 
 def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
-                   masks, n: int, j: int, generator=None, gather=None):
+                   masks, n: int, j: int, generator=None, gather=None,
+                   plan=None):
     """The round's three level means without the (m, n, ...) stack: unit by
     unit, the (m, ...) worker gradients of unit k (batches: tree leading (m,
     n)), attacked with unit k's mask (masks: (n, m)) and, for ``random``,
@@ -171,7 +205,9 @@ def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
     it. The summation order differs from the stacked means', so the
     streamed round is not bitwise the stacked one. ``gather`` re-assembles
     each unit's worker gradients from the ranks' blocks, as in
-    ``make_dynabro_step``."""
+    ``make_dynabro_step``; a ``plan`` (the GSPMD path) exchanges them
+    instead, so the accumulators hold every worker at the rank's parameter
+    blocks (``ShardPlan.exchange``)."""
     mlmc_live = cfg.use_mlmc and 1 <= j <= cfg.mlmc.j_max
     need_all = mlmc_live or not cfg.use_mlmc
     worker_grads = vmap(grad_fn, in_dims=(None, 0))
@@ -180,7 +216,12 @@ def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
         g = worker_grads(params, tree_map(lambda l: l.select(1, k), batches))
         if gather is not None:
             g = gather(g)
-        g = atk(g, masks[k], generator=generator)
+        if plan is not None:
+            g = plan.exchange(g, 1)
+        if plan is not None and cfg.attack in attacks_lib.STACK_ATTACKS:
+            g = _random_on_blocks(cfg, plan, g, masks[k], generator, 1)
+        else:
+            g = atk(g, masks[k], generator=generator)
         g = {key: v.to(F32).contiguous() for key, v in g.items()}
         if k == 0:
             a0 = g
@@ -204,7 +245,7 @@ def _stream_levels(grad_fn: GradFn, cfg: DynaBROConfig, atk, params, batches,
 
     g0_stack = {key: v.to(params[key].dtype) for key, v in a0.items()}
     return _combine_from_levels(cfg, g0_stack, mean(ah, n // 2), mean(aa, n),
-                                n, j)
+                                n, j, plan)
 
 
 def make_dynabro_step(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
@@ -452,7 +493,6 @@ def _segment_bounds(T: int, eval_every: int, chunk: int):
 # the JAX package's keywords that the port does not take yet, and the
 # ROADMAP.md queue 1 item that brings each
 _UNPORTED = {
-    "param_specs": "Multi-device",  # the JAX package's GSPMD sharding
     "guard_recompiles": "lint/",
 }
 
@@ -467,12 +507,15 @@ def _refuse_unported(**kw) -> None:
 
 # ------------------------------------------------------ worker meshes
 #
-# Every rank calls a sharded driver with the same arguments. Params,
-# optimizer state, momenta, masks, levels and generators are replicated;
-# only the batch schedule is split on its worker axis, rank r of an axis of
-# n holding workers [r·m/n, (r+1)·m/n). After the worker gather every rank
-# runs the same attack, aggregation and update, so every rank returns the
-# same params and logs.
+# Every rank calls a sharded driver with the same arguments. On a 1-axis
+# worker mesh params, optimizer state, momenta, masks, levels and
+# generators are replicated; only the batch schedule is split on its worker
+# axis, rank r of an axis of n holding workers [r·m/n, (r+1)·m/n). After the
+# worker gather every rank runs the same attack, aggregation and update, so
+# every rank returns the same params and logs. On a 2-axis (workers,
+# 'model') mesh (the GSPMD path, ``_gspmd_scan_fn``) the params and the
+# optimizer state are split too, and a rank attacks, aggregates and
+# updates its own blocks of them (``sharded.ShardPlan``).
 
 
 def _check_scan_fn_mesh(scan_fn, mesh) -> None:
@@ -489,16 +532,18 @@ def _check_scan_fn_mesh(scan_fn, mesh) -> None:
 
 def _check_worker_mesh(mesh, worker_axis: str, m: Optional[int] = None,
                        allow_model: bool = True) -> None:
-    """A 1-axis ``(worker_axis,)`` mesh whose axis divides m (None: not
-    checked). The JAX package's 2-axis ``(workers, 'model')`` GSPMD mesh is
-    not ported and raises ``NotImplementedError`` where it would be taken."""
+    """A 1-axis ``(worker_axis,)`` mesh, or with ``allow_model`` the 2-axis
+    ``(worker_axis, 'model')`` mesh of the GSPMD path, whose worker axis
+    divides m (None: not checked)."""
     axes = tuple(mesh.axis_names)
-    if allow_model and axes == (worker_axis, "model"):
-        raise NotImplementedError(
-            "a (workers, 'model') mesh selects the GSPMD path, which is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1, 'Multi-device', "
-            "Mode B)")
-    if axes != (worker_axis,):
+    if not allow_model and "model" in axes:  # momentum runs
+        raise ValueError(
+            "momentum scan driver supports only 1-axis worker meshes; the "
+            "2-axis (workers, 'model') GSPMD path is DynaBRO-only "
+            "(DESIGN.md §9)")
+    allowed = ((worker_axis,), (worker_axis, "model")) if allow_model \
+        else ((worker_axis,),)
+    if axes not in allowed:
         want = f"1-axis ({worker_axis!r},)" + (
             f" or 2-axis ({worker_axis!r}, 'model')" if allow_model else "")
         raise ValueError(
@@ -525,6 +570,24 @@ def _check_lane_mesh(mesh, lane_axis: str, worker_axis: str,
         raise ValueError(
             f"worker count m={m} not divisible by the {worker_axis!r} mesh "
             f"axis size {mesh.shape[worker_axis]}")
+
+
+def _check_param_specs(mesh, param_specs) -> None:
+    if param_specs is not None and (mesh is None
+                                    or "model" not in mesh.axis_names):
+        raise ValueError(
+            "param_specs only applies to the 2-axis (workers, 'model') GSPMD "
+            "path; the 1-axis shard_map path replicates params (DESIGN.md §9)")
+
+
+def _gspmd_plan(mesh, worker_axis: str, param_specs):
+    """The GSPMD path's ``sharded.ShardPlan`` on a ``(workers, 'model')``
+    mesh (the JAX package's ``_gspmd_constraints``), or None on a mesh of
+    one device: that mesh runs the unsharded round function, bitwise
+    ``mesh=None`` by construction."""
+    if math.prod(list(mesh.shape.values())) == 1:
+        return None
+    return sharded.ShardPlan(mesh, worker_axis, param_specs)
 
 
 def _norm_mesh(mesh):
@@ -561,16 +624,9 @@ class _WorkerGather:
                                        self.mesh.group(self.axis))
 
     def shard(self, tree, dim: int):
-        r = self.mesh.coordinate(self.axis)
-
-        def block(leaf):
-            k, rest = divmod(leaf.shape[dim], self.n)
-            if rest:
-                raise ValueError(
-                    f"worker count m={leaf.shape[dim]} not divisible by the "
-                    f"{self.axis!r} mesh axis size {self.n}")
-            return leaf.narrow(dim, r * k, k).contiguous()
-        return tree_map(block, tree)
+        return sharded.worker_block(tree, self.n,
+                                    self.mesh.coordinate(self.axis), dim,
+                                    self.axis)
 
 
 def _worker_gather(mesh, worker_axis: str) -> Optional[_WorkerGather]:
@@ -841,6 +897,13 @@ class ScanFn:
     mesh: every rank runs the same rounds, each from its own block of the
     workers' batches (``run`` and ``run_round`` take full batches and keep
     the block), and the level graphs are cut at the gathers.
+
+    ``plan`` is the GSPMD path's ``sharded.ShardPlan`` on a ``(workers,
+    'model')`` mesh: the carry holds the rank's parameter blocks
+    (``place``), ``run`` gives ``eval_fn`` and returns the full params
+    (``full``), a rank keeps its block of workers' batches, and the rounds
+    run eagerly on a card too (a round holds several collectives, which no
+    graph can); ``eager_rounds`` counts the rounds run eagerly.
     """
 
     lane_attacks: Optional[tuple] = None
@@ -848,13 +911,30 @@ class ScanFn:
     lanes = False
     microbatch = False
     gather: Optional[_WorkerGather] = None
+    plan: Optional[sharded.ShardPlan] = None
 
     def __init__(self, round_fn, flags: bool):
         self.round_fn, self.flags = round_fn, flags
         self._generators: Dict[torch.device, list] = {}
         self._graphs: Optional[_LevelGraphs] = None
         self.captures = 0
+        self.eager_rounds = 0
         self.corr_norms: Optional[np.ndarray] = None
+
+    def place(self, params):
+        """The carry's params for full ``params``: the rank's blocks under a
+        ``plan``, else ``params``."""
+        return params if self.plan is None else self.plan.blocks(params)
+
+    def full(self, params):
+        """Full params from the carry's: gathered under a ``plan``."""
+        return params if self.plan is None else self.plan.gather(params)
+
+    def _block_rows(self):
+        """This rank's block of workers of a full batch (dim 0), or None."""
+        narrow = self.gather or self.plan
+        return None if narrow is None else functools.partial(narrow.shard,
+                                                             dim=0)
 
     @property
     def capture_seconds(self) -> Dict[Any, float]:
@@ -896,15 +976,15 @@ class ScanFn:
         ``whole_carry``; the rounds' flags, a (rounds,) or (rounds, C) bool
         array, or None; evals)."""
         dev = tree_leaves(carry)[0].device
-        if self.gather is not None:  # each round narrowed as it is drawn
-            batches = functools.partial(batches, row_fn=functools.partial(
-                self.gather.shard, dim=0))
+        rows = self._block_rows()
+        if rows is not None:  # each round narrowed as it is drawn
+            batches = functools.partial(batches, row_fn=rows)
         seeds = ((seed,) if isinstance(seed, (int, np.integer, torch.Tensor))
                  else tuple(seed))
         gens = self.generators(dev, len(seeds))
         masks_dev = torch.as_tensor(masks, device=dev)
         lane_dev = None if lane is None else (lane, lane.tensors(dev))
-        if dev.type == "cuda":
+        if dev.type == "cuda" and self.plan is None:
             return self._run_graphs(carry, keys, masks_dev, batches, bounds,
                                     seeds, gens, eval_fn, eval_every, lane_dev,
                                     start, whole_carry)
@@ -917,16 +997,17 @@ class ScanFn:
                 carry, ok, dn = _call_round(
                     self.round_fn, carry, tree_map(lambda l: l[i], seg),
                     masks_dev[t], int(keys[t]), gens, lane_dev)
+                self.eager_rounds += 1
                 flags.append(ok)
                 dns.append(dn)
             if self.flags:
                 oks.append(torch.stack(flags).cpu().numpy())
             if eval_fn and eval_every and b % eval_every == 0:
-                evals.append((b, eval_fn(carry[0], b - 1)))
+                evals.append((b, eval_fn(self.full(carry[0]), b - 1)))
             a = b
         self.corr_norms = (torch.stack(dns).to(F32).cpu().numpy()
                            if self.flags else None)
-        return (carry if whole_carry else carry[0],
+        return (carry if whole_carry else self.full(carry[0]),
                 np.concatenate(oks) if self.flags else None, evals)
 
     def _run_graphs(self, carry, keys, masks_dev, batches, bounds, seeds, gens,
@@ -979,19 +1060,22 @@ class ScanFn:
         does not draw). Returns (carry, ok, corr_norm, the generator's state
         after the round).
 
-        The round is the one ``run`` runs: eager on the CPU; on a card the
-        replay of the level's graph among the graphs kept (a run's, or, if
-        none fits, a set built for one round), captured only where the
+        The round is the one ``run`` runs: eager on the CPU and under a
+        ``plan`` (whose carry holds the rank's blocks); otherwise on a card
+        the replay of the level's graph among the graphs kept (a run's, or,
+        if none fits, a set built for one round), captured only where the
         level has none yet. So rounds driven one at a time give the bits of
         the same rounds inside ``run``."""
         dev = tree_leaves(carry)[0].device
-        if self.gather is not None:
-            batch = self.gather.shard(batch, 0)
+        rows = self._block_rows()
+        if rows is not None:
+            batch = rows(batch)
         (gen,) = self.generators(dev, 1)
         if state is not None:
             gen.set_state(state)
-        if dev.type != "cuda":
+        if dev.type != "cuda" or self.plan is not None:
             carry, ok, dn = self.round_fn(carry, batch, masks, key, gen)
+            self.eager_rounds += 1
             return carry, ok, dn, gen.get_state()
         batch_rows = tree_map(lambda l: l[None], batch)
         with torch.cuda.device(dev):
@@ -1048,13 +1132,27 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     the unsharded round function, bitwise ``mesh=None``. The scan_fn keeps
     ``mesh`` as ``worker_mesh`` for the drivers' check.
 
+    A **2-axis** ``(workers, 'model')`` mesh (``make_worker_mesh(model=)``)
+    takes the model zoo's GSPMD path instead (``_gspmd_scan_fn``):
+    ``param_specs`` (a spec tree over the params from
+    ``launch.sharding.plan_params``; None replicates the params) splits
+    each parameter over the worker axis (FSDP) and over 'model', the carry
+    holds the rank's blocks, and a round gathers the params, computes the
+    rank's block of workers, exchanges the worker stacks so each rank holds
+    every worker at its blocks, and attacks, aggregates and updates those
+    (``sharded.ShardPlan``). Every rank returns the same params and logs;
+    against ``mesh=None`` the logs are equal and the params within rtol
+    1e-5, atol 1e-6 (the coordinate-wise rules with sgd come out bitwise
+    on the CPU; distances and norms are summed in another order). On a mesh
+    whose axes are all size 1 the unsharded round function runs, bitwise
+    ``mesh=None``; ``param_specs`` without a 2-axis mesh raises
+    ``ValueError``.
+
     ``sweep_mesh`` (a 2-axis ``(lanes, workers)`` mesh from
     ``launch.mesh.make_lane_mesh``) builds the sweep's lane form sharded
     over ``worker_axis`` the same way (``Session.sweep`` splits the lanes
     over ``lane_axis``); exclusive with ``mesh`` and ``microbatch``.
-    ``lane_attacks`` / ``lane_aggregators`` reject ``mesh``. A
-    ``(workers, 'model')`` mesh and ``param_specs`` (the GSPMD path) are not
-    ported and raise ``NotImplementedError``."""
+    ``lane_attacks`` / ``lane_aggregators`` reject ``mesh``."""
     if (lane_attacks is not None or lane_aggregators is not None) \
             and mesh is not None:
         raise ValueError(
@@ -1075,12 +1173,18 @@ def make_dynabro_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
         raise ValueError(
             "microbatch streaming is not supported on the lane-batched sweep "
             "variant (DESIGN.md §9); drop lane_attacks/lane_aggregators")
+    _check_param_specs(mesh, param_specs)
     if mesh is not None:
         _check_worker_mesh(mesh, worker_axis)
-    _refuse_unported(param_specs=param_specs)
     if lane_attacks is not None or lane_aggregators is not None:
         return _lane_scan_fn(grad_fn, cfg, opt, lane_attacks, lane_aggregators,
                              sweep_mesh, worker_axis)
+    plan = (_gspmd_plan(mesh, worker_axis, param_specs)
+            if mesh is not None and "model" in mesh.axis_names else None)
+    if plan is not None:
+        scan_fn = _gspmd_scan_fn(grad_fn, cfg, opt, plan, microbatch)
+        scan_fn.worker_mesh = mesh
+        return scan_fn
     if microbatch:
         scan_fn = _streamed_scan_fn(grad_fn, cfg, opt,
                                     _worker_gather(mesh, worker_axis))
@@ -1131,6 +1235,45 @@ def _streamed_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
     return scan_fn
 
 
+def _gspmd_scan_fn(grad_fn: GradFn, cfg: DynaBROConfig, opt: Optimizer,
+                   plan: sharded.ShardPlan, microbatch: bool) -> ScanFn:
+    """The GSPMD path's round loop on ``plan``'s mesh: the carry holds the
+    rank's parameter and optimizer-state blocks, and a round gathers the
+    full params, computes the per-worker gradients of the rank's block of
+    workers (streamed unit by unit with ``microbatch``, else the (m_local,
+    n, ...) stack), exchanges them to every worker at the rank's blocks,
+    attacks and aggregates the blocks (the rules' distances and the
+    correction's norm summed over every rank's blocks), and updates the
+    blocks (AdaGrad-Norm's norm summed the same way). Eager on a card too:
+    a round holds several collectives."""
+    j_max = cfg.mlmc.j_max
+    n_max = 2 ** j_max if cfg.use_mlmc else 1
+    atk = attacks_lib.get_attack(cfg.attack, **(cfg.attack_kwargs or {}))
+
+    def round_fn(carry, batch, masks, j, generator):
+        n = 2 ** j if (cfg.use_mlmc and 1 <= j <= j_max) else 1
+        blocks, opt_state = carry
+        params = plan.gather(blocks)
+        b = level_prefix(batch, n, n_max, axis=1)
+        if microbatch:
+            g, info = _stream_levels(grad_fn, cfg, atk, params, b, masks[:n],
+                                     n, j, generator, plan=plan)
+        else:
+            grads = plan.exchange(_per_worker_grads(grad_fn, params, b), 2)
+            del params
+            grads = _attack_stack(cfg, grads, masks[:n], generator, plan)
+            g, info = _combine_levels(cfg, grads, j, plan)
+        updates, opt_state = opt.update(g, opt_state, blocks,
+                                        sq_norm=plan.sq_norm)
+        return ((apply_updates(blocks, updates), opt_state),
+                info["failsafe_ok"], info["corr_norm"])
+
+    scan_fn = ScanFn(round_fn, flags=True)
+    scan_fn.microbatch = microbatch
+    scan_fn.plan = plan
+    return scan_fn
+
+
 def run_dynabro_scan(
     grad_fn: GradFn,
     params,
@@ -1169,18 +1312,21 @@ def run_dynabro_scan(
     the loop sharded over ``worker_axis`` (``make_dynabro_scan_fn``): every
     rank of the mesh calls this with the same arguments and returns the same
     params and logs; ``switcher.m`` must be divisible by the axis. A mesh of
-    one device is bitwise ``mesh=None``. A ``(workers, 'model')`` mesh and
-    ``param_specs`` raise ``NotImplementedError``."""
+    one device is bitwise ``mesh=None``. A 2-axis ``(workers, 'model')``
+    mesh takes the GSPMD path with ``param_specs`` (the spec tree from
+    ``launch.sharding.plan_params``) splitting the parameters over both
+    axes; the params given and returned are full on every rank
+    (``make_dynabro_scan_fn`` for the contracts)."""
+    _check_param_specs(mesh, param_specs)
     if mesh is not None:
         _check_worker_mesh(mesh, worker_axis, switcher.m)
-    _refuse_unported(param_specs=param_specs)
     _check_scan_fn_mesh(scan_fn, mesh)
     _check_scan_fn_microbatch(scan_fn, microbatch)
     if T <= 0:
         return params, [], []
     scan_fn = scan_fn or make_dynabro_scan_fn(
         grad_fn, cfg, opt, mesh=mesh, worker_axis=worker_axis,
-        microbatch=microbatch)
+        param_specs=param_specs, microbatch=microbatch)
     levels, ns, n_max = _level_plan(cfg, np.random.default_rng(seed), T)
     masks = _mask_schedule(switcher, T, n_max, ns)
 
@@ -1188,6 +1334,7 @@ def run_dynabro_scan(
         return _batch_schedule(sample_batches, list(zip(range(a, b), ns[a:b])),
                                n_max, vectorize=vectorize_batches, row_fn=row_fn)
 
+    params = scan_fn.place(params)
     params, ok, evals = scan_fn.run(
         (params, opt.init(params)), levels, masks, batches,
         _segment_bounds(T, eval_every if eval_fn else 0, chunk),

@@ -1,7 +1,10 @@
-"""Launch helpers: the device meshes of the sharded Mode A drivers."""
+"""Launch helpers: the device meshes of the sharded drivers, and the
+sharding rules of the model zoo's GSPMD path (``launch.sharding``)."""
 from repro_torch.launch.mesh import (
-    Mesh, make_lane_mesh, make_worker_mesh, n_workers, worker_axes,
+    Mesh, make_lane_mesh, make_production_mesh, make_test_mesh,
+    make_worker_mesh, n_workers, worker_axes, worker_iota, worker_spec,
 )
 
-__all__ = ["Mesh", "make_lane_mesh", "make_worker_mesh", "n_workers",
-           "worker_axes"]
+__all__ = ["Mesh", "make_lane_mesh", "make_production_mesh", "make_test_mesh",
+           "make_worker_mesh", "n_workers", "worker_axes", "worker_iota",
+           "worker_spec"]

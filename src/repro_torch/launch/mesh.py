@@ -11,10 +11,13 @@ of one device needs no process group; a larger one is built on
 which every rank of it must have initialised (``init_process_group``) and
 enter together.
 
-The JAX package's ``set_mesh``, ``shard_map``, ``make_production_mesh``,
-``make_test_mesh``, ``worker_spec`` and ``worker_iota`` are jax API or
-serve its GSPMD path (Mode B, ROADMAP.md queue 1, 'Multi-device'); a mesh
-with a ``'model'`` axis is Mode B too.
+A ``(workers, 'model')`` mesh (``make_worker_mesh(model=)``) is the model
+zoo's GSPMD path: ``launch/sharding.py``'s specs split each parameter over
+both axes (``core/sharded.ShardPlan``). ``make_test_mesh`` and
+``make_production_mesh`` name the JAX package's meshes over the default
+group's ranks. The JAX package's ``set_mesh`` and ``shard_map`` are jax API
+with no counterpart: the mesh's process groups and explicit collectives
+take their place.
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ import dataclasses
 import math
 from typing import Any, Tuple
 
+import torch
 import torch.distributed as dist
+
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +89,10 @@ def _device_type() -> str:
 
 
 def _make_mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+    have = world_size()
+    if math.prod(sizes) > have:
+        raise ValueError(
+            f"requested {'x'.join(map(str, sizes))} devices, have {have}")
     if math.prod(sizes) == 1:
         return Mesh(axes, sizes)
     from torch.distributed.device_mesh import init_device_mesh
@@ -102,22 +112,50 @@ def n_workers(mesh) -> int:
     return n
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh: 16 x 16 ranks over ("data",
+    "model"), or 2 x 16 x 16 over ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(shape, axes)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model")) -> Mesh:
+    """A small mesh of ``shape`` over ``axes`` for tests (gloo CPU ranks)."""
+    return _make_mesh(tuple(shape), tuple(axes))
+
+
+def worker_spec(waxes):
+    """The spec entry of a leading worker axis: the tuple of worker mesh
+    axes, collapsed to the bare name when there is only one."""
+    return tuple(waxes) if len(waxes) > 1 else waxes[0]
+
+
+def worker_iota(m: int, device="cuda") -> torch.Tensor:
+    """The worker index as data: ``arange(m)`` in float32, a rank's block
+    of it its own worker indices."""
+    return torch.arange(m, dtype=torch.float32, device=resolve_device(device))
+
+
 def make_worker_mesh(n_devices: int = 0, axis: str = "workers",
                      model: int = 0) -> Mesh:
-    """The 1-axis ``(workers,)`` mesh of the sharded compiled drivers:
-    ``n_devices`` ranks (0: every rank of the default group). ``n_devices=1``
-    gives the parity-contract mesh, bitwise the unsharded driver. ``model``
-    >= 1 (the GSPMD path) raises ``NotImplementedError``."""
-    if model:
-        raise NotImplementedError(
-            "make_worker_mesh(model=) builds the (workers, 'model') mesh of "
-            "the GSPMD path, which is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, 'Multi-device', Mode B)")
+    """The worker mesh of the sharded compiled drivers.
+
+    ``model=0`` (default) builds the 1-axis ``(workers,)`` mesh:
+    ``n_devices`` ranks (0: every rank of the default group), and
+    ``n_devices=1`` the parity-contract mesh, bitwise the unsharded driver.
+
+    ``model`` >= 1 builds the 2-axis ``(workers, 'model')`` mesh of the
+    model zoo's GSPMD path: ``n_devices`` (0: whatever the model axis
+    leaves over) is the worker axis's size, rank r sits at ``(r // model,
+    r % model)``, and ``launch.sharding.plan_params``'s per-leaf rules split
+    the parameters over it (the worker axis doubling as the FSDP axis). A
+    ``(1, 1)`` mesh is this path's parity-contract mesh."""
     have = world_size()
-    n = n_devices or have
-    if n > have:
-        raise ValueError(f"requested {n} devices, have {have}")
-    return _make_mesh((n,), (axis,))
+    if model:
+        return _make_mesh((n_devices or max(1, have // model), model),
+                          (axis, "model"))
+    return _make_mesh((n_devices or have,), (axis,))
 
 
 def make_lane_mesh(n_lanes: int = 0, n_workers: int = 1,
@@ -130,10 +168,6 @@ def make_lane_mesh(n_lanes: int = 0, n_workers: int = 1,
     sweep."""
     if n_workers < 1:
         raise ValueError(f"n_workers must be >= 1, got {n_workers}")
-    have = world_size()
-    n = n_lanes or max(1, have // n_workers)
-    if n * n_workers > have:
-        raise ValueError(
-            f"requested {n}x{n_workers} devices, have {have}")
+    n = n_lanes or max(1, world_size() // n_workers)
     return _make_mesh((n, n_workers), (lane_axis, worker_axis))
 

@@ -3,8 +3,11 @@
     η_t = η₀ / sqrt(Σ_{s≤t} ‖g_s‖²)
 
 Minimal optax-like interface over parameter dicts: ``init(params) -> state``,
-``update(grads, state, params) -> (updates, state)``; apply with
-``apply_updates`` (updates are *subtracted*). Accumulators are float32.
+``update(grads, state, params, sq_norm=None) -> (updates, state)``; apply
+with ``apply_updates`` (updates are *subtracted*). Accumulators are
+float32. ``sq_norm`` (None: ``_global_norm_sq``) gives Σ‖leaf‖² of a
+gradient dict where its leaves are blocks of sharded parameters (the GSPMD
+path's ``core/sharded.ShardPlan.sq_norm``); only AdaGrad-Norm reads it.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def sgd(lr: float) -> Optimizer:
     def init(params):
         return ()
 
-    def update(g, state, params=None):
+    def update(g, state, params=None, sq_norm=None):
         return {k: lr * g[k].to(F32) for k in sorted(g)}, state
 
     return Optimizer(init, update, "sgd")
@@ -54,7 +57,7 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
     def init(params):
         return _zeros_like(params)
 
-    def update(g, state, params=None):
+    def update(g, state, params=None, sq_norm=None):
         m = {k: beta * state[k] + (1 - beta) * g[k].to(F32) for k in sorted(g)}
         return {k: lr * m[k] for k in sorted(m)}, m
 
@@ -68,7 +71,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
         return {"m": _zeros_like(params), "v": _zeros_like(params),
                 "t": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(g, state, params=None):
+    def update(g, state, params=None, sq_norm=None):
         t = state["t"] + 1
         keys = sorted(g)
         m = {k: b1 * state["m"][k] + (1 - b1) * g[k].to(F32) for k in keys}
@@ -90,8 +93,8 @@ def adagrad_norm(eta0: float) -> Optimizer:
         dev = next(iter(params.values())).device
         return torch.zeros((), dtype=F32, device=dev)
 
-    def update(g, acc, params=None):
-        acc = acc + _global_norm_sq(g)
+    def update(g, acc, params=None, sq_norm=None):
+        acc = acc + (sq_norm or _global_norm_sq)(g)
         eta = eta0 / torch.sqrt(torch.clamp_min(acc, 1e-12))
         return {k: eta * g[k].to(F32) for k in sorted(g)}, acc
 

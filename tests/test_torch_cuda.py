@@ -1666,3 +1666,82 @@ def test_group_recompute_bitwise_and_captured_on_card(ieee_f32, arch):
     for a, b, c, d in zip(leaves, eager, *replays):
         assert torch.equal(a, b) and torch.equal(b, c) and torch.equal(c, d)
         assert bool(torch.isfinite(a).all())
+
+
+class _RankOf:
+    """A (workers, 'model') mesh as one rank of it sees it, without process
+    groups: enough for ``ShardPlan``'s blocks and sums."""
+
+    axis_names = ("workers", "model")
+
+    def __init__(self, shape, w, c):
+        self.shape = dict(zip(self.axis_names, shape))
+        self._coord = {"workers": w, "model": c}
+
+    def coordinate(self, axis):
+        return self._coord[axis]
+
+
+def test_sharded_aggregation_on_card(cuda_device):
+    """The GSPMD path's aggregation on a (2, 2) mesh, every rank's blocks
+    in one process: K1 on a rank's block tree bitwise the unsharded tree
+    reduce's columns and within TOL of the plain version's; K3's and K6's
+    per-leaf partials of the four ranks summed in rank order
+    (``ShardPlan.add_partials``) against the unsharded kernels and against
+    the plain versions' partials summed the same way."""
+    from repro_torch.core.sharded import ShardPlan
+
+    m, shape = 17, (2, 2)
+    specs = {"a": ("workers", "model"), "b": ("workers",), "c": (None, "model"),
+             "d": (None,)}
+    gen = torch.Generator().manual_seed(7)
+    stack = {"a": torch.randn(m, 64, 96, generator=gen),
+             "b": torch.randn(m, 130, generator=gen),
+             "c": torch.randn(m, 8, 40, generator=gen),
+             "d": torch.randn(m, 33, generator=gen)}
+    z = {k: torch.randn(v.shape[1:], generator=gen) for k, v in stack.items()}
+    stack = {k: v.to(cuda_device) for k, v in stack.items()}
+    z = {k: v.to(cuda_device) for k, v in z.items()}
+    full = agg_engine.tree_cw_reduce(stack, "tm", 8, backend="kernel")
+    plans = [ShardPlan(_RankOf(shape, w, c), "workers", specs)
+             for w in range(2) for c in range(2)]
+    parts = {"pair": [], "cross": [], "pair_ref": [], "cross_ref": []}
+    for plan in plans:
+        blocks = {k: plan.block(k, v, 1).contiguous() for k, v in stack.items()}
+        zb = {k: plan.block(k, v, 0) for k, v in z.items()}
+        before = fused.LAUNCHES["cw_reduce"]
+        got = agg_engine.tree_cw_reduce(blocks, "tm", 8, backend="kernel")
+        assert fused.LAUNCHES["cw_reduce"] == before + 1  # a tree, one launch
+        want = {k: plan.block(k, v, 0) for k, v in full.items()}
+        plain = agg_engine.tree_cw_reduce(blocks, "tm", 8, backend="ref")
+        for k in stack:
+            assert torch.equal(got[k], want[k]), k
+            torch.testing.assert_close(got[k], plain[k], **TOL)
+        for name, backend in (("", "kernel"), ("_ref", "ref")):
+            parts["pair" + name].append({k: agg_engine.pairwise_sqdist(
+                agg_engine._as_mat(blocks[k]), backend=backend)
+                for k in sorted(blocks)})
+            parts["cross" + name].append({k: agg_engine.cross_sqdist(
+                agg_engine._as_mat(blocks[k]),
+                zb[k].reshape(1, -1).contiguous(), backend=backend)[:, 0]
+                for k in sorted(blocks)})
+
+    def summed(per_rank):
+        keys = sorted(per_rank[0])
+        table = torch.stack([torch.cat([p[k].reshape(-1) for k in keys])
+                             for p in per_rank]).reshape(2, 2, -1)
+        return plans[0].add_partials(table, {k: tuple(per_rank[0][k].shape)
+                                             for k in keys})
+
+    rows = [agg_engine._as_mat(v) for v in stack.values()]
+    d2 = agg_engine.tree_pairwise_sqdist(stack, backend="kernel")
+    dz = agg_engine.tree_cross_sqdist(stack, z, backend="kernel")
+    _dist_close(summed(parts["pair"]), d2, *rows)
+    _dist_close(summed(parts["pair"]), summed(parts["pair_ref"]), *rows)
+    _dist_close(summed(parts["cross"]), dz, *rows)
+    _dist_close(summed(parts["cross"]), summed(parts["cross_ref"]), *rows)
+    # every rank's sum from the same table: the same bits
+    assert all(torch.equal(plans[0].add_partials(
+        torch.zeros(2, 2, 4, device=cuda_device), {"d": (4,)}),
+        p.add_partials(torch.zeros(2, 2, 4, device=cuda_device), {"d": (4,)}))
+        for p in plans)

@@ -88,9 +88,9 @@ def test_facade_names_are_the_jax_packages():
     assert set(repro.checkpoint.__all__) <= set(repro_torch.__all__)
     for name in repro_torch.__all__:
         assert hasattr(repro_torch, name), name
-    # the meshes of one process: one device; the GSPMD mesh is Mode B
+    # the meshes of one process: one device, the GSPMD mesh (1, 1)
     assert repro_torch.api.make_worker_mesh().shape == {"workers": 1}
     assert repro_torch.api.make_lane_mesh().shape == {"lanes": 1,
                                                       "workers": 1}
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        repro_torch.api.make_worker_mesh(model=1)
+    assert repro_torch.api.make_worker_mesh(model=1).shape == {"workers": 1,
+                                                               "model": 1}

@@ -100,8 +100,9 @@ def test_meshes_of_one_process():
         make_lane_mesh(2, 1)
     with pytest.raises(ValueError, match="n_workers"):
         make_lane_mesh(1, 0)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        make_worker_mesh(1, model=1)
+    assert make_worker_mesh(1, model=1) == Mesh(("workers", "model"), (1, 1))
+    with pytest.raises(ValueError, match="requested 1x2 devices, have 1"):
+        make_worker_mesh(model=2)
 
 
 # --------------------------------------------------------------- rejections
@@ -217,7 +218,8 @@ def test_scan_fn_mesh_mismatch_is_refused():
                                m=ranks.M, opt=opt, switcher=sw, mesh=mesh)
     with pytest.raises(ValueError, match="legacy"):
         sess.run(4, driver="legacy")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # param_specs= is the (workers, 'model') mesh's: the JAX package's error
+    with pytest.raises(ValueError, match="param_specs"):
         _run(mesh, param_specs={})
 
 

@@ -164,17 +164,22 @@ def test_unported_keywords_raise():
     params0, grad_fn, sampler, _ = _small_task()
     cfg = _small_cfg("cwtm")
     opt = t_optim.sgd(0.1)
-    # microbatch= and the worker meshes are ported (tests/test_torch_zoo.py,
-    # tests/test_torch_mesh.py); param_specs= and a (workers, 'model') mesh
-    # are the JAX package's GSPMD sharding, Mode B of multi-device
+    # microbatch=, the worker meshes and the GSPMD path are ported
+    # (tests/test_torch_zoo.py, tests/test_torch_mesh.py,
+    # tests/test_torch_gspmd.py): a (1, 1) (workers, 'model') mesh runs the
+    # unsharded round, and param_specs= without a 2-axis mesh raises the
+    # JAX package's ValueError
     gspmd = Mesh(("workers", "model"), (1, 1))
-    for kw, item in [({"mesh": gspmd}, "Multi-device"),
-                     ({"param_specs": {}}, "Multi-device")]:
-        with pytest.raises(NotImplementedError, match=item):
-            t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
-                                  sampler, 4, **kw)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt, mesh=gspmd)
+    want = t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
+                                 sampler, 4)[0]
+    got = t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
+                                sampler, 4, mesh=gspmd, param_specs={})[0]
+    _assert_same(want, got)
+    with pytest.raises(ValueError, match="param_specs"):
+        t_rt.run_dynabro_scan(grad_fn, params0, opt, cfg, _switcher(),
+                              sampler, 4, param_specs={})
+    assert t_rt.make_dynabro_scan_fn(grad_fn, cfg, opt,
+                                     mesh=gspmd).worker_mesh == gspmd
     fn = t_rt.make_dynabro_scan_fn(
         grad_fn, cfg, opt, sweep_mesh=Mesh(("lanes", "workers"), (1, 1)))
     assert fn.lane_form().lanes and fn.worker_mesh is None

@@ -121,10 +121,12 @@ def test_run_matrix_refusals():
     with pytest.raises(ValueError, match="driver='scan'"):
         t_scen.run_scenario(task, grid[0], driver="legacy",
                             mesh=make_worker_mesh(1), **KW)
-    # the GSPMD path's (workers, 'model') mesh is Mode B of multi-device
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_scen.run_scenario(task, grid[0],
-                            mesh=Mesh(("workers", "model"), (1, 1)), **KW)
+    # the GSPMD path's (1, 1) (workers, 'model') mesh runs the unsharded
+    # round, as the JAX package's does (tests/test_torch_gspmd.py)
+    got = t_scen.run_scenario(task, grid[0],
+                              mesh=Mesh(("workers", "model"), (1, 1)), **KW)
+    want = t_scen.run_scenario(task, grid[0], **KW)
+    assert all(got[k] == want[k] for k in ("final", "cost", "failsafe_trips"))
     with pytest.raises(ValueError, match="unknown driver"):
         t_scen.run_scenario(task, grid[0], driver="nope", **KW)
     no_seed = t_scen.Task(task.params0, task.grad_fn,

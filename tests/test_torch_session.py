@@ -165,15 +165,17 @@ def test_session_errors_and_unported_keywords(monkeypatch):
     with pytest.raises(ValueError, match="lr= and beta="):
         t_session.Session(cfg, grad_fn=None, params0=None, mode="momentum")
     base = dict(grad_fn=task.grad_fn, params0=task.params0, opt=t_optim.sgd(0.1))
-    # microbatch= and the worker mesh= are ported (tests/test_torch_zoo.py,
-    # tests/test_torch_mesh.py); param_specs= and a (workers, 'model') mesh
-    # are the JAX package's GSPMD sharding, Mode B of multi-device
-    for kw, item in [({"mesh": Mesh(("workers", "model"), (1, 1)), "m": M},
-                      "Multi-device"),
-                     ({"param_specs": {}}, "Multi-device"),
-                     ({"guard_recompiles": True}, "lint/")]:
-        with pytest.raises(NotImplementedError, match=item):
-            t_session.Session(cfg, **base, **kw)
+    # microbatch=, the worker mesh= and the GSPMD path are ported
+    # (tests/test_torch_zoo.py, tests/test_torch_mesh.py,
+    # tests/test_torch_gspmd.py): param_specs= without a 2-axis mesh raises
+    # the JAX package's ValueError; guard_recompiles= is lint/'s
+    sess = t_session.Session(cfg, **base, m=M, param_specs={},
+                             mesh=Mesh(("workers", "model"), (1, 1)))
+    assert sess.scan_fn.worker_mesh == Mesh(("workers", "model"), (1, 1))
+    with pytest.raises(ValueError, match="param_specs"):
+        t_session.Session(cfg, **base, param_specs={})
+    with pytest.raises(NotImplementedError, match="lint/"):
+        t_session.Session(cfg, **base, guard_recompiles=True)
     with pytest.raises(ValueError, match="worker count"):
         t_session.Session(cfg, **base, mesh=Mesh(("workers",), (1,)))
     monkeypatch.setenv(t_session.GUARD_ENV, "1")

@@ -261,7 +261,8 @@ def test_microbatch_scan_fn_checks():
         with pytest.raises(ValueError, match="lane-batched sweep"):
             t_rt.make_dynabro_scan_fn(task.grad_fn, cfg, opt, microbatch=True,
                                       **kw)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # param_specs= without a (workers, 'model') mesh: the JAX package's error
+    with pytest.raises(ValueError, match="param_specs"):
         _run(task, param_specs={})
 
 
