@@ -137,7 +137,25 @@ sources there (``nvcc``, one process per source, all started together, into
      eager; four gloo ranks on a (2, 2) mesh, qwen3-0.6b at d_model 512,
      m=16 (7 Byzantine), T=8, CWTM streamed and GeoMed stacked, each
      against its unsharded run on rank 0; each rank's peak memory,
-     rounds/s, collectives and their ms;
+     rounds/s, collectives and their ms; then Mode B's robust step
+     (``modeb_path``, ``launch.steps.build_train_step`` /
+     ``build_mlmc_train_step``): eight gloo ranks on the one card (this
+     script with ``--modeb-rank``, started before ``gspmd_path``) on a
+     (4, 2) ``('data', 'model')`` mesh, SmolLM-360M at its published width
+     (8 layers), one worker a position of 'data', 8 steps of CWTM at delta
+     0.25 under sign_flip on worker 0 (sgd(0.05), seq 128, global batch
+     8) and one MLMC step at J=1 (CWMed), against the unsharded
+     computation of the same steps in this process (each worker's
+     gradient, the attack, K1's tree, held to the plain version's on the
+     same stacks, sgd): the ranks' full params bitwise each other, within
+     rtol 1e-5, atol 1e-6 of the unsharded ones (ulps printed),
+     their losses within rtol 1e-6 of the unsharded losses, finite (and
+     falling, a weak check), failsafe_ok 1, 90 ``cw_reduce`` launches a
+     rank (one a hooked scope a gradient; the MLMC step at J=1 takes two
+     gradients) and no other kernel; each rank's steps/s (its one run),
+     gloo seconds of gathers, exchanges and sums, and peak memory; K1 is
+     also held to the plain version at the ranks' m=4 block widths
+     (``check_modeb_kernels``);
      then the zoo's other families in the same setting
      (``zoo_families_path``): whisper-base at its published width and depth
      (6 + 6 layers, d_model 512, 1500 encoder frames, 113,959,936
@@ -191,9 +209,11 @@ and the exit code is non-zero; so is it without a CUDA card.
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import inspect
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -225,15 +245,24 @@ from repro_torch import (  # noqa: E402
     save_checkpoint, scenario_grid, sgd, worker_payloads,
 )
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
+from repro_torch.core.agg_engine import get_aggregator  # noqa: E402
 from repro_torch.core import robust_train as rt  # noqa: E402
-from repro_torch.core.sharded import COLLECTIVES, GATHERS  # noqa: E402
+from repro_torch.core.sharded import COLLECTIVES, GATHERS, scope_plans  # noqa: E402
 from repro_torch.data import classification as clf  # noqa: E402
 from repro_torch.serve import smoke as serve_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.launch.sharding import plan_params  # noqa: E402
+from repro_torch.core.mlmc import mlmc_combine  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_test_mesh  # noqa: E402
+from repro_torch.launch.sharding import abstract_params, plan_params  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_mlmc_train_step, build_train_step,
+)
+from repro_torch.optim.optimizers import apply_updates  # noqa: E402
 from repro_torch.models import init_params, task_for_config  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models import transformer as zoo_tf  # noqa: E402
@@ -477,7 +506,7 @@ def check_tree_kernels(dev):
     return worst, n
 
 
-CW_TREE_M = (2, 17, 33, 64)
+CW_TREE_M = (2, 4, 17, 33, 64)  # 4: Mode B's m
 
 
 def check_cw_tree_kernels(dev):
@@ -624,6 +653,68 @@ def check_zoo_tree_kernels(dev, cfg=None, what="zoo widths"):
           "max_abs_err": worst, "bitwise_equal_per_leaf_launches": True,
           "tolerance": TOL})
     del leaves, xs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def modeb_block_widths(cfg):
+    """The columns of the (m, block) stacks a rank of ``modeb_path`` reduces,
+    by hook scope ("top"; "blocks", one layer group's): each leaf's block
+    on the (4, 2) ``('data', 'model')`` mesh, its FSDP dim split over the 4
+    workers and its model dim over 'model' (``plan_params(fsdp=True)``'s
+    specs, as ``build_train_step`` plans them)."""
+    mesh = Mesh(("data", "model"), MODEB_MESH)
+    specs, _ = plan_params(cfg, mesh, fsdp=True, dtype=torch.float32)
+    shapes = {k: tuple(v.shape)
+              for k, v in abstract_params(cfg, torch.float32).items()}
+    widths = {}
+    for scope, plan in scope_plans(mesh, specs).items():
+        widths[scope] = []
+        for k in sorted(plan.specs):
+            shape = shapes[k] if scope == "top" else shapes["blocks/" + k][1:]
+            cols = math.prod(shape)
+            for d, n in zip(plan.dims(k, len(shape)), (plan.n_w, plan.n_m)):
+                cols //= 1 if d is None else n
+            widths[scope].append((k, cols))
+    return widths
+
+
+def check_modeb_kernels(dev):
+    """``tree_cw_reduce`` at ``modeb_path``'s shapes: m=4 stacks of a rank's
+    blocks of each hook scope of the 8-layer SmolLM-360M on the (4, 2)
+    mesh (the embedding's block 5,898,240 columns), under Mode B's rules:
+    the trimmed mean at trim 1 (CWTM at delta 0.25), the median (CWMed;
+    at even m the mean of the two middle rows) and the mean; against the
+    plain version leaf by leaf (within TOL) and bit for bit against one
+    launch per leaf, one launch a scope."""
+    m = MODEB_MESH[0]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst, n = 0.0, 0
+    widths = modeb_block_widths(zoo_config(GSPMD_LAYERS))
+    for scope, leaves in widths.items():
+        xs = [torch.randn(m, d, generator=gen, device=dev) * 1e-2
+              for _, d in leaves]
+        # ties: a leaf's rows 1 and 2 equal in every other column
+        xs[0][2, ::2] = xs[0][1, ::2]
+        per_call = -(-len(xs) // fused.MAX_LEAVES)
+        for mode, trim in (("tm", 1), ("med", 0), ("mean", 0)):
+            tag = f"modeb {scope} m={m} {mode} trim={trim}"
+            before = LAUNCHES["cw_reduce"]
+            outs = fused.tree_cw_reduce(xs, mode, trim)
+            assert LAUNCHES["cw_reduce"] == before + per_call, tag
+            for (name, _), x, out in zip(leaves, xs, outs):
+                assert torch.equal(out, fused.cw_reduce(x, mode, trim)), \
+                    f"tree vs leaf {tag} {name}"
+                worst = max(worst, check(out, kref.cw_reduce_ref(x, mode, trim),
+                                         f"{tag} {name}"))
+                n += 1
+        del xs, outs
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_check", "kernel": "tree_cw_reduce (Mode B blocks)",
+          "m": m, "leaves": {s: dict(v) for s, v in widths.items()},
+          "modes": ["tm trim=1", "med", "mean"], "comparisons": n,
+          "max_abs_err": worst, "bitwise_equal_per_leaf_launches": True,
+          "tolerance": TOL})
     torch.cuda.empty_cache()
     return worst
 
@@ -2511,6 +2602,287 @@ def gspmd_path(dev, zoo_ref):
     return by_path
 
 
+# ------------------------------------------------ 9b. Mode B's robust step
+
+MODEB_RANKS, MODEB_MESH = 8, (4, 2)  # ('data', 'model'): m=4 workers
+MODEB_STEPS, MODEB_BATCH, MODEB_LR = 8, 8, 0.05
+MODEB_MLMC = dict(T=64, m=4, V=1e9)  # J=1, the fail-safe passes
+MODEB_MASK = (1.0, 0.0, 0.0, 0.0)  # sign_flip on worker 0
+MODEB_WAIT_S = 900  # a rank's wait to be let go (it starts before gspmd_path)
+MODEB_TIMEOUT_S = 300  # the ranks' run once let go
+# K1 launches a rank: one tree reduce a scope ("top", then each of the 8
+# layer groups) a gradient, 8 train steps + the MLMC step's 2 gradients
+# (levels 0 and 1; at J=1 level J-1 is level 0)
+MODEB_K1_PER_GRAD = 1 + GSPMD_LAYERS
+MODEB_K1_LAUNCHES = MODEB_K1_PER_GRAD * (MODEB_STEPS + 2)
+
+
+def modeb_shape():
+    return ShapeConfig("modeb", ZOO_SEQ, MODEB_BATCH, "train")
+
+
+def modeb_data(dev):
+    return SyntheticLMData(zoo_config().vocab_size, ZOO_SEQ, MODEB_BATCH,
+                           seed=0, device=dev)
+
+
+def modeb_rank(rank, tmp):
+    """One rank of ``modeb_path``'s gloo group on the card: a (4, 2)
+    ``('data', 'model')`` mesh, SmolLM-360M at its published width,
+    ``GSPMD_LAYERS`` layers, seed 0's params; ``MODEB_STEPS`` steps of
+    ``build_train_step`` (CWTM at delta 0.25, sign_flip on worker 0,
+    sgd(0.05), seq 128, global batch 8), then one ``build_mlmc_train_step``
+    at J=1 (CWMed) from seed 0's params on step 100's 16 rows. Writes its
+    row to ``<tmp>/rank<rank>.json``; rank 0 also writes both runs' full
+    params (``<tmp>/train.pt``, ``<tmp>/mlmc.pt``)."""
+    t_entry = time.time()
+    startup_s = t_entry - float(os.environ["MODEB_SPAWN_T"])
+    while not Path(tmp, "go").exists():  # modeb_path lets the ranks go
+        assert time.time() - t_entry < MODEB_WAIT_S, "never let go"
+        time.sleep(0.05)
+    t_entry = time.time()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=MODEB_RANKS)
+    dev = torch.device("cuda", 0)
+    cfg, data = zoo_config(GSPMD_LAYERS), modeb_data(dev)
+    maskf = torch.tensor(MODEB_MASK, device=dev)
+    try:
+        mesh = make_test_mesh(MODEB_MESH)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        before = dict(COLLECTIVES)
+        step = build_train_step(cfg, mesh, modeb_shape(), aggregator="cwtm",
+                                attack="sign_flip", delta=0.25,
+                                opt=sgd(MODEB_LR), dtype=torch.float32)
+        blocks = step.place(init_params(cfg, 0, device=dev))
+        block_numel = sum(v.numel() for v in blocks.values())
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MODEB_STEPS):
+            blocks, _, loss = step.fn(blocks, (), data.batch(t), maskf)
+            losses.append(float(loss))
+        train_s = time.perf_counter() - t0
+        train = {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+        full = step.gather(blocks)
+        row = {"rank": rank, "losses": losses, "train_s": train_s,
+               "first_run_steps_per_s": MODEB_STEPS / train_s,
+               "train_collectives": train,
+               "block_numel": block_numel, "block_gb": 4 * block_numel / 1e9,
+               "blocks_are_the_full_blocks": bitwise(blocks,
+                                                     step.place(full)),
+               "train_digest": digest(full)}
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in full.items()},
+                       Path(tmp, "train.pt"))
+        del blocks, full
+        before = dict(COLLECTIVES)
+        mlmc = build_mlmc_train_step(
+            cfg, mesh, modeb_shape(), MLMCConfig(**MODEB_MLMC), 1,
+            aggregator="cwmed", opt=sgd(MODEB_LR), dtype=torch.float32)
+        t0 = time.perf_counter()
+        blocks, _, (ok, dn) = mlmc.fn(mlmc.place(init_params(cfg, 0,
+                                                             device=dev)),
+                                      (), data.batch(100, 2 * MODEB_BATCH),
+                                      maskf)
+        row["mlmc_s"] = time.perf_counter() - t0
+        row["mlmc_collectives"] = {k: COLLECTIVES[k] - before[k]
+                                   for k in COLLECTIVES}
+        full = mlmc.gather(blocks)
+        row.update(failsafe_ok=float(ok), corr_norm=float(dn),
+                   mlmc_digest=digest(full),
+                   launches={k: v for k, v in LAUNCHES.items() if v})
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in full.items()},
+                       Path(tmp, "mlmc.pt"))
+        alloc, reserved = peak_gb(dev)
+        row.update(peak_allocated_gb=alloc, peak_reserved_gb=reserved,
+                   startup_s=startup_s, rank_s=time.time() - t_entry)
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def digest(params):
+    """A sha256 of a dict of tensors' bytes, in sorted key order."""
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def modeb_start():
+    """Start ``modeb_rank`` as ``MODEB_RANKS`` processes of this script on
+    expandable segments; each imports, then waits for ``modeb_path`` to let
+    it go. Returns (processes, the ``TemporaryDirectory`` they write to)."""
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, MODEB_SPAWN_T=repr(time.time()),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--modeb-rank",
+         str(r), tmp.name], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(MODEB_RANKS)]
+    return procs, tmp
+
+
+def modeb_reference(dev, cfg):
+    """The unsharded computation of ``modeb_rank``'s runs, in this process:
+    each worker's gradient on its rows (``torch.autograd.grad`` of
+    ``loss_fn`` on the full params, as a rank differentiates), worker 0's
+    negated, ``get_aggregator("cwtm").tree`` (K1), sgd; then the MLMC step
+    of CWMed's trees of levels 0 and 1 and ``mlmc_combine``. Each of its
+    aggregations is also held to the plain version's on the same (4, P)
+    stack, within TOL. Returns (the train run's params, its losses, the
+    MLMC step's params, its failsafe_ok, the largest |K1 - plain|)."""
+    m, data = MODEB_MESH[0], modeb_data(dev)
+    opt = sgd(MODEB_LR)
+
+    def worker_grads(params, batch):
+        rows = batch["tokens"].shape[0] // m
+        losses, grads = [], []
+        for i in range(m):
+            leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+            keys = sorted(leaves)
+            loss = zoo_loss(leaves, {k: v[i * rows:(i + 1) * rows]
+                                     for k, v in batch.items()}, cfg)
+            losses.append(loss.detach())
+            grads.append(dict(zip(keys, torch.autograd.grad(
+                loss, [leaves[k] for k in keys]))))
+        return losses, {k: torch.stack([g[k] for g in grads]) for k in grads[0]}
+
+    def update(params, g):
+        return apply_updates(params, opt.update(g, (), params)[0])
+
+    worst = [0.0]
+
+    def tree(rule, stack, **kw):
+        got = get_aggregator(rule, **kw).tree(stack)
+        plain = get_aggregator(rule, backend="ref", **kw).tree(stack)
+        for k in got:
+            worst[0] = max(worst[0], check(got[k], plain[k],
+                                           f"modeb {rule} K1 vs plain {k}"))
+        return got
+
+    params, losses = init_params(cfg, 0, device=dev), []
+    for t in range(MODEB_STEPS):
+        worker_losses, stack = worker_grads(params, data.batch(t))
+        total = worker_losses[0]
+        for v in worker_losses[1:]:
+            total = total + v
+        losses.append(float(total / m))
+        for k in stack:
+            stack[k][0] = -stack[k][0]
+        with torch.no_grad():
+            params = update(params, tree("cwtm", stack, delta=0.25))
+    p0, batch = init_params(cfg, 0, device=dev), data.batch(100, 2 * MODEB_BATCH)
+    half = {k: v.reshape(m, -1, *v.shape[1:])[:, :2].reshape(-1, *v.shape[1:])
+            for k, v in batch.items()}
+    g0 = tree("cwmed", worker_grads(p0, half)[1])
+    g1 = tree("cwmed", worker_grads(p0, batch)[1])
+    with torch.no_grad():
+        g, info = mlmc_combine(g0, g0, g1, 1, MLMCConfig(**MODEB_MLMC))
+        mlmc = update(p0, g)
+    return params, losses, mlmc, float(info["failsafe_ok"]), worst[0]
+
+
+def modeb_path(dev, started):
+    """Mode B's robust step on the card: ``MODEB_RANKS`` gloo ranks
+    (``started`` by ``modeb_start``) on a (4, 2) ``('data', 'model')`` mesh,
+    SmolLM-360M at its published width (d_model 960, 15 / 5 heads, vocab
+    49152; ``_perf_cfg`` splits the attention's q-sequence over 'model'),
+    ``GSPMD_LAYERS`` layers, every parameter FSDP-split over the 4 workers
+    and split over 'model'. First the unsharded computation of the same
+    steps in this process (``modeb_reference``, its K1 aggregations held
+    to the plain version's on the same stacks), then the ranks: their
+    full params bitwise each other (a digest) and each rank's blocks those
+    of its full params, losses equal; the params within rtol 1e-5, atol
+    1e-6 of the unsharded computation (bitwise predicted; ulps printed);
+    the losses within rtol 1e-6 of the unsharded losses (equal predicted)
+    and finite; failsafe_ok 1;
+    ``MODEB_K1_LAUNCHES`` cw_reduce launches a rank and no other kernel
+    (every aggregation on the kernel). The losses also fall from the first
+    step to the last, a weak check: 8 steps at lr 0.05 move them by about
+    1e-3, while the batches move them by about 3e-2. Prints a rank's
+    steps/s (its one run, warm-up included), its gloo seconds (gathers,
+    exchanges, sums) and peak GB. Returns a rank's launches."""
+    t0 = time.perf_counter()
+    cfg = zoo_config(GSPMD_LAYERS)
+    procs, tmp = started
+    try:
+        ref, ref_losses, ref_mlmc, ref_ok, k1_vs_plain = modeb_reference(
+            dev, cfg)
+        ref_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        Path(tmp.name, "go").touch()
+        logs = [p.communicate(timeout=MODEB_TIMEOUT_S)[0] for p in procs]
+        ranks_s = time.perf_counter() - t1
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"modeb rank {r} failed:\n{log[-6000:]}"
+        rows = [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
+                for r in range(MODEB_RANKS)]
+        got = torch.load(Path(tmp.name, "train.pt"), map_location=dev)
+        got_mlmc = torch.load(Path(tmp.name, "mlmc.pt"), map_location=dev)
+    finally:
+        modeb_end(started)
+    losses = rows[0]["losses"]
+    row = {"phase": "modeb_path", "ranks": MODEB_RANKS, "mesh": MODEB_MESH,
+           "arch": ZOO_ARCH, "layers": GSPMD_LAYERS, "d_model": cfg.d_model,
+           "params": sum(v.numel() for v in ref.values()),
+           "steps": MODEB_STEPS, "seq_len": ZOO_SEQ,
+           "global_batch": MODEB_BATCH,
+           "ranks_bitwise_equal": all(
+               (r["train_digest"], r["mlmc_digest"], r["losses"])
+               == (rows[0]["train_digest"], rows[0]["mlmc_digest"], losses)
+               and r["blocks_are_the_full_blocks"] for r in rows),
+           "bitwise_unsharded": bitwise(got, ref),
+           "max_param_diff": max_diff(got, ref), "max_ulps": ulps(got, ref),
+           "within_tol": within(got, ref), "tol": GSPMD_TOL,
+           "unsharded_k1_vs_plain_max_abs_err": k1_vs_plain,
+           "losses": losses, "unsharded_losses": ref_losses,
+           "losses_equal_unsharded": losses == ref_losses,
+           "losses_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                      zip(losses, ref_losses)),
+           "mlmc_bitwise_unsharded": bitwise(got_mlmc, ref_mlmc),
+           "mlmc_max_param_diff": max_diff(got_mlmc, ref_mlmc),
+           "mlmc_max_ulps": ulps(got_mlmc, ref_mlmc),
+           "mlmc_within_tol": within(got_mlmc, ref_mlmc),
+           "failsafe_ok": rows[0]["failsafe_ok"], "unsharded_failsafe_ok": ref_ok,
+           "k1_launches_predicted": MODEB_K1_LAUNCHES,
+           "per_rank": [{k: r[k] for k in (
+               "rank", "launches", "first_run_steps_per_s", "train_s",
+               "mlmc_s", "train_collectives", "mlmc_collectives",
+               "block_gb", "peak_allocated_gb", "peak_reserved_gb",
+               "startup_s", "rank_s")} for r in rows],
+           "reference_s": ref_s, "ranks_s": ranks_s,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    assert row["ranks_bitwise_equal"], row
+    assert row["within_tol"] and row["mlmc_within_tol"], row
+    assert row["failsafe_ok"] == 1.0 == ref_ok, row
+    assert all(math.isfinite(v) for v in losses), row
+    assert row["losses_max_rel_diff"] <= 1e-6, row
+    assert losses[-1] < losses[0], row  # weak: see the docstring
+    for r in rows:
+        assert r["launches"] == {"cw_reduce": MODEB_K1_LAUNCHES}, r
+    return rows[0]["launches"]
+
+
+def modeb_end(started):
+    procs, tmp = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tmp.cleanup()
+
+
 # ------------------------------------------------ 9b. the zoo's families
 
 WHISPER = "whisper-base"
@@ -3440,6 +3812,7 @@ def main():
           "bitwise_equal_every_plan": True, "tolerance": TOL})
 
     zoo_worst = check_zoo_tree_kernels(dev)
+    modeb_worst = check_modeb_kernels(dev)
     whisper_worst = check_zoo_tree_kernels(dev, get_config(WHISPER),
                                            "whisper-base widths")
 
@@ -3465,8 +3838,14 @@ def main():
         by_path[f"halving {grid}"] = halving_path(task, grid)
     by_path.update(mesh_path(task))
     by_path["zoo"], by_path["serve zoo"], zoo_ref = zoo_path(dev)
-    by_path.update(gspmd_path(dev, zoo_ref))
-    del zoo_ref
+    modeb = modeb_start()  # the ranks import while gspmd_path runs
+    try:
+        by_path.update(gspmd_path(dev, zoo_ref))
+        del zoo_ref
+        gc.collect()
+        by_path["modeb"] = modeb_path(dev, modeb)
+    finally:
+        modeb_end(modeb)
     by_path.update(zoo_families_path(dev))
     remat_path(dev)
     t_decode = time.perf_counter()
@@ -3488,7 +3867,7 @@ def main():
     entries = [kernel_entry(
         "cw_reduce", "src/repro_torch/kernels/csrc/cw_reduce.cu",
         "src/repro/kernels/fused.py:156", launches, launches_of("cw_reduce"),
-        max([worst, cw_tree_worst, lane_worst, zoo_worst,
+        max([worst, cw_tree_worst, lane_worst, zoo_worst, modeb_worst,
              zoo_row["max_abs_err"], whisper_worst,
              whisper_row["max_abs_err"]]
             + [r["max_abs_err"] for r in rows.values()]),
@@ -3544,5 +3923,7 @@ if __name__ == "__main__":
         mesh_rank(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--gspmd-rank"]:  # one rank of gspmd_path
         gspmd_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    elif sys.argv[1:2] == ["--modeb-rank"]:  # one rank of modeb_path
+        modeb_rank(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -49,6 +49,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import math
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -772,7 +773,15 @@ class _LevelGraphs:
         each worker gather (``torch.cuda.graph``'s own steps: the card
         synchronised and the cache emptied before the first piece, and the
         capture ended when the round raises, so the stream takes work
-        again)."""
+        again).
+
+        The cyclic collector stays off until the round is captured: a CUDA
+        graph freed while a capture runs, on any thread, ends the capture
+        with ``cudaErrorStreamCaptureInvalidated``, and an earlier session
+        left in a reference cycle (a server and its thread) holds graphs
+        that only the collector frees. It is not run before the capture,
+        as ``torch.cuda.graph`` does: a full collection of a process that
+        holds a model costs tenths of a second a capture."""
         pieces, graph = [], None
 
         def split(tree, dim):
@@ -787,28 +796,34 @@ class _LevelGraphs:
 
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        if self.gather is not None:
-            self.gather.split = split
-        with torch.cuda.stream(self.stream):
-            try:
-                graph = self._begin()
-                carry, ok, corr_norm = self._round(key)
-                tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
-                if self.flags:
-                    row = (1,) + tuple(self.ok.shape[1:])
-                    self.ok.index_copy_(0, self.gidx, ok.reshape(row))
-                    self.corr_norm.index_copy_(0, self.gidx,
-                                               corr_norm.reshape(row).to(F32))
-                self.gidx.add_(1)
-                self.sidx.add_(1)
-                done, graph = graph, None
-                done.capture_end()
-                pieces.append((done, None))
-            finally:
-                if graph is not None:
-                    graph.capture_end()
-                if self.gather is not None:
-                    self.gather.split = None
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            if self.gather is not None:
+                self.gather.split = split
+            with torch.cuda.stream(self.stream):
+                try:
+                    graph = self._begin()
+                    carry, ok, corr_norm = self._round(key)
+                    tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
+                    if self.flags:
+                        row = (1,) + tuple(self.ok.shape[1:])
+                        self.ok.index_copy_(0, self.gidx, ok.reshape(row))
+                        self.corr_norm.index_copy_(0, self.gidx,
+                                                   corr_norm.reshape(row).to(F32))
+                    self.gidx.add_(1)
+                    self.sidx.add_(1)
+                    done, graph = graph, None
+                    done.capture_end()
+                    pieces.append((done, None))
+                finally:
+                    if graph is not None:
+                        graph.capture_end()
+                    if self.gather is not None:
+                        self.gather.split = None
+        finally:
+            if collecting:
+                gc.enable()
         return pieces
 
     def capture(self, keys) -> None:

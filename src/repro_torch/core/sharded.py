@@ -1,6 +1,6 @@
-"""The sharded substrate of the compiled drivers, the port of the JAX
-package's ``core/sharded.py`` but its Mode B robust step: Mode A's worker
-gather and the model zoo's GSPMD path (``ShardPlan``).
+"""The sharded substrate, the port of the JAX package's ``core/sharded.py``:
+Mode A's worker gather, the model zoo's GSPMD path (``ShardPlan``) and
+Mode B's robust gathers and param hook (below).
 
 The compiled drivers lay the m simulated workers across the ranks of a
 worker mesh (``launch/mesh.py``): each rank computes the per-worker
@@ -27,22 +27,52 @@ statistics (distances, squared norms) are summed over the ranks holding
 distinct blocks, every rank adding the same gathered partials in rank
 order, so the ranks agree bitwise. ``COLLECTIVES`` counts its parameter
 gathers, exchanges and sums, and their host seconds as ``GATHERS`` counts
-them. The rest of the reference file, the robust gathers and the param
-hook of Mode B's step, is ROADMAP.md queue 1's 'Multi-device' (b).
+them, split by kind (``gather_seconds``, ``exchange_seconds``,
+``sum_seconds``; ``seconds`` their total).
+
+Mode B (the JAX package's production training path, ``launch/steps.py``)
+runs one worker a position of the mesh's worker axes, every parameter
+FSDP-split over those axes and split over 'model' (``ShardPlan`` over the
+tuple of worker axes). ``ParamHook`` applies at each point of use a
+gather whose backward robust-aggregates instead of summing
+(``_RobustGather``, one ``autograd.Function`` a call over a scope's
+leaves): its forward is ``ShardPlan.gather``; its backward cuts the rank's
+'model' block of each cotangent, exchanges the workers' blocks
+(``ShardPlan.exchange``: one all-to-all a dtype, the leaves kept whole over
+the workers sent whole, a stack gather), attacks the Byzantine workers'
+rows of the (m, block) stacks (``_attack_cotangent``: the honest
+statistics of IPM and ALIE are per coordinate, so attacking the exchanged
+stacks is the reference's attack before the exchange, exactly) and reduces
+the stacks with the coordinate-wise rule, one ``tree_cw_reduce`` launch a
+scope of up to 32 leaves (K1 reduces each column on its own: the values of
+aggregating leaf by leaf). The mask arrives as data; the attacked rows are
+the exchanged stack's, so no worker index is needed. The JAX package's
+``tree_sq_norm`` and ``make_global_norm`` are ``ShardPlan.sq_norm`` and
+``ShardPlan.norm``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from repro_torch.core.agg_engine import get_aggregator
+
 GATHERS = {"gathers": 0, "seconds": 0.0}
-COLLECTIVES = {"param_gathers": 0, "exchanges": 0, "sums": 0, "seconds": 0.0}
+COLLECTIVES = {"param_gathers": 0, "exchanges": 0, "sums": 0, "seconds": 0.0,
+               "gather_seconds": 0.0, "exchange_seconds": 0.0,
+               "sum_seconds": 0.0}
 F32 = torch.float32
+
+
+def _collective_seconds(kind: str, secs: float) -> None:
+    COLLECTIVES[kind + "_seconds"] += secs
+    COLLECTIVES["seconds"] += secs
 
 
 def pack(tree, dim: int = 0):
@@ -164,7 +194,9 @@ class ShardPlan:
     leaf name -> a tuple with an entry a dim, each None, ``'model'`` or the
     worker axis (its name, or a tuple of it), as ``launch.sharding.
     plan_params`` gives them; ``specs=None`` replicates every leaf (the
-    worker stacks are still split).
+    worker stacks are still split). Mode B's ``worker_axis`` is the tuple
+    of the mesh's worker axes (one name where there is one), taken as one
+    axis (``launch.mesh.Mesh``'s joint group).
 
     A rank at ``(w, c)`` holds, of each leaf, block w of its FSDP dim and
     block c of its model dim (the whole dim where the spec has none), and
@@ -172,9 +204,13 @@ class ShardPlan:
     method together, in the same order."""
 
     def __init__(self, mesh, worker_axis: str, specs=None):
-        self.mesh, self.worker_axis = mesh, worker_axis
+        axes = (tuple(worker_axis) if isinstance(worker_axis, (tuple, list))
+                else (worker_axis,))
+        self.mesh = mesh
+        self.worker_axis = axes[0] if len(axes) == 1 else axes
         self.specs = None if specs is None else dict(specs)
-        self.n_w, self.n_m = mesh.shape[worker_axis], mesh.shape["model"]
+        self.n_w = math.prod(mesh.shape[a] for a in axes)
+        self.n_m = mesh.shape["model"]
 
     # --------------------------------------------------------- layout
 
@@ -245,13 +281,14 @@ class ShardPlan:
 
     # ---------------------------------------------------- collectives
 
-    def _all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def _all_gather(self, x: torch.Tensor, axis, kind: str) -> torch.Tensor:
         """(n, *x.shape): every rank's ``x`` along ``axis``, in rank order;
-        its host seconds added to ``COLLECTIVES``."""
-        out = x.new_empty((self.mesh.shape[axis],) + tuple(x.shape))
+        its host seconds added to ``COLLECTIVES`` under ``kind``."""
+        n = self.n_w if axis == self.worker_axis else self.mesh.shape[axis]
+        out = x.new_empty((n,) + tuple(x.shape))
         x = x.contiguous()
-        COLLECTIVES["seconds"] += _host_seconds(lambda: dist.all_gather(
-            list(out.unbind(0)), x, group=self.mesh.group(axis)), x)
+        _collective_seconds(kind, _host_seconds(lambda: dist.all_gather(
+            list(out.unbind(0)), x, group=self.mesh.group(axis)), x))
         return out
 
     def gather(self, blocks):
@@ -269,7 +306,8 @@ class ShardPlan:
             if not keys:
                 continue
             flats, layout = pack({k: out[k][None] for k in keys}, 0)
-            pieces = unpack([self._all_gather(f, axis) for f in flats], layout)
+            pieces = unpack([self._all_gather(f, axis, "gather")
+                             for f in flats], layout)
             for k in keys:
                 d = self.dims(k)[which]
                 out[k] = torch.cat(pieces[k].unbind(0), d)
@@ -304,8 +342,8 @@ class ShardPlan:
                                 for r in range(n)])  # (n, m_local, D)
             recv = torch.empty_like(send)
             group = self.mesh.group(self.worker_axis)
-            COLLECTIVES["seconds"] += _host_seconds(
-                lambda: dist.all_to_all_single(recv, send, group=group), send)
+            _collective_seconds("exchange", _host_seconds(
+                lambda: dist.all_to_all_single(recv, send, group=group), send))
             off = 0
             for k, parts in items:
                 shape = tuple(parts[0].shape[1:])
@@ -327,9 +365,9 @@ class ShardPlan:
         flat = torch.cat([parts[k].reshape(-1).to(F32) for k in keys])
         table = flat[None]
         if self.n_m > 1:
-            table = self._all_gather(flat, "model")
-        table = (self._all_gather(table, self.worker_axis) if self.n_w > 1
-                 else table[None])  # (n_w, n_m or 1, D)
+            table = self._all_gather(flat, "model", "sum")
+        table = (self._all_gather(table, self.worker_axis, "sum")
+                 if self.n_w > 1 else table[None])  # (n_w, n_m or 1, D)
         COLLECTIVES["sums"] += 1
         return self.add_partials(table, {k: tuple(parts[k].shape)
                                          for k in keys})
@@ -357,6 +395,17 @@ class ShardPlan:
             out = s if out is None else out + s
         return out
 
+    def worker_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the worker axis of a float32 scalar that each worker
+        holds: every rank's gathered, added in rank order on every rank."""
+        if self.n_w == 1:
+            return x
+        vals = self._all_gather(x.to(F32).reshape(()), self.worker_axis, "sum")
+        total = vals[0]
+        for v in vals[1:]:
+            total = total + v
+        return total / self.n_w
+
     def sq_norm(self, tree) -> torch.Tensor:
         """Σ‖leaf‖² of a tree of this rank's blocks, over the whole leaves
         (``optim.optimizers``' ``_global_norm_sq``)."""
@@ -366,3 +415,141 @@ class ShardPlan:
     def norm(self, tree) -> torch.Tensor:
         """The global L2 norm (``core.mlmc.tree_norm``) of a tree of blocks."""
         return torch.sqrt(self.sq_norm(tree))
+
+
+# ------------------------------------------------------------ Mode B
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedByzConfig:
+    axis_names: Tuple[str, ...]  # worker axes, e.g. ('data',) or ('pod','data')
+    m: int  # product of worker axis sizes
+    aggregator: str = "cwmed"  # coordinate-wise: mean | cwmed | cwtm
+    delta: float = 0.25
+    attack: str = "none"  # none | sign_flip | ipm | alie
+    attack_param: float = 0.1
+    backend: str = "auto"  # agg_engine backend: ref | kernel | auto
+
+    def __post_init__(self):
+        if self.attack not in ATTACKS:
+            raise ValueError(f"unknown attack {self.attack!r}, expected one "
+                             f"of {ATTACKS}")
+
+
+ATTACKS = ("none", "sign_flip", "ipm", "alie")
+
+
+def _make_leaf_agg(cfg: ShardedByzConfig):
+    """The rule of ``cfg`` from the shared engine registry; its ``tree``
+    reduces a scope's (m, block) stacks, its ``leaf`` one. Mode B aggregates
+    each parameter block on its own, which is exact only for coordinate-wise
+    rules, so any other rule raises ``ValueError`` here, when the step is
+    built."""
+    agg = get_aggregator(cfg.aggregator, delta=cfg.delta, backend=cfg.backend)
+    if not agg.coordinate_wise:
+        raise ValueError(
+            f"sharded mode supports coordinate-wise rules, got {cfg.aggregator}")
+    return agg
+
+
+def _attack_cotangent(stack: Dict[str, torch.Tensor], maskf: torch.Tensor,
+                      cfg: ShardedByzConfig) -> Dict[str, torch.Tensor]:
+    """The workers' exchanged (m, ...) cotangent stacks with the rows of the
+    workers that ``maskf`` (m,) flags (> 0.5) attacked: ``sign_flip`` -g,
+    ``ipm`` -attack_param · (honest sum) / n_honest, ``alie`` mu -
+    attack_param · sqrt(var + 1e-12) with the honest rows' mean and
+    variance, n_honest = max(m - Σ maskf, 1); in float32, cast back to each
+    leaf's dtype. The honest statistics are per coordinate, so these are
+    the reference's formulas on each worker's whole cotangent."""
+    if cfg.attack == "none":
+        return stack
+    byz = maskf > 0.5
+    n_honest = torch.clamp(cfg.m - maskf.sum(), min=1.0)
+    out = {}
+    for k in sorted(stack):
+        g = stack[k]
+        gf = g.to(F32)
+        b = byz.reshape((-1,) + (1,) * (g.dim() - 1))
+        honest = torch.where(b, 0.0, 1.0)
+        if cfg.attack == "sign_flip":
+            bad = -gf
+        elif cfg.attack == "ipm":
+            bad = -cfg.attack_param * (honest * gf).sum(0) / n_honest
+        else:  # alie (ShardedByzConfig admits no other name)
+            mu = (honest * gf).sum(0) / n_honest
+            var = (honest * torch.square(gf - mu)).sum(0) / n_honest
+            bad = mu - cfg.attack_param * torch.sqrt(var + 1e-12)
+        out[k] = torch.where(b, bad, gf).to(g.dtype)
+    return out
+
+
+class _RobustGather(torch.autograd.Function):
+    """One call of Mode B's hook over a scope's leaves (the port of the JAX
+    package's ``make_robust_gather`` / ``make_robust_replicated`` custom
+    VJPs, one Function for all of a call's leaves): the forward gathers the
+    rank's blocks into the full leaves (``ShardPlan.gather``), the backward
+    robust-aggregates the workers' cotangents at the rank's blocks
+    (``ParamHook.aggregate``). It runs inside ``torch.func.vjp`` too (a
+    layer group's recompute, ``models/transformer._Group``), whose
+    Functions see plain tensors, so the collectives run there."""
+
+    @staticmethod
+    def forward(hook, scope, keys, *blocks):
+        full = hook.plans[scope].gather(dict(zip(keys, blocks)))
+        # a leaf that no axis splits comes back as its block: a view, so
+        # that autograd keeps the output apart from the input
+        return tuple(full[k].view_as(b) if full[k] is b else full[k]
+                     for k, b in zip(keys, blocks))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.hook, ctx.scope, ctx.keys = inputs[:3]
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        agg = ctx.hook.aggregate(ctx.scope, dict(zip(ctx.keys, cotangents)))
+        return (None, None, None) + tuple(agg[k] for k in ctx.keys)
+
+
+class ParamHook:
+    """Mode B's param hook (the JAX package's ``make_param_hook``; its
+    ``make_robust_gather`` and ``make_robust_replicated`` are this hook on a
+    scope's FSDP-split and worker-replicated leaves, which one call takes
+    together): ``hook(tree, scope)`` -> the full leaves of the rank's blocks
+    ``tree``, through a ``_RobustGather``. ``plans`` maps a
+    scope to its ``ShardPlan`` (``scope_plans``): "top" the leaves outside
+    the layer groups, "blocks" one group's slices. ``maskf`` (m,) flags the
+    Byzantine workers, as data."""
+
+    def __init__(self, cfg: ShardedByzConfig, plans: Dict[str, ShardPlan],
+                 maskf: torch.Tensor):
+        self.cfg, self.plans, self.maskf = cfg, plans, maskf
+        self.agg = _make_leaf_agg(cfg)
+
+    def __call__(self, tree, scope: str):
+        keys = tuple(sorted(tree))
+        return dict(zip(keys, _RobustGather.apply(
+            self, scope, keys, *(tree[k] for k in keys))))
+
+    def aggregate(self, scope: str, cotangents) -> Dict[str, torch.Tensor]:
+        """This worker's full-leaf ``cotangents`` -> the robust aggregate of
+        every worker's at the rank's blocks: the model block cut, the
+        workers' blocks exchanged, the stacks attacked, one
+        ``tree_cw_reduce`` over the scope."""
+        stack = self.plans[scope].exchange(
+            {k: g[None] for k, g in cotangents.items()}, 1)
+        return self.agg.tree(_attack_cotangent(stack, self.maskf, self.cfg))
+
+
+def scope_plans(mesh, specs) -> Dict[str, ShardPlan]:
+    """The hook's plans from the full params' ``specs`` (``launch.sharding.
+    plan_params``): "top" every leaf not under "blocks/", "blocks" one layer
+    group's slices (keyed under "blocks/", the stacked group dim dropped),
+    over the tuple of ``mesh``'s worker axes."""
+    waxes = tuple(a for a in mesh.axis_names if a != "model")
+    pre = "blocks/"
+    return {"top": ShardPlan(mesh, waxes, {k: v for k, v in specs.items()
+                                           if not k.startswith(pre)}),
+            "blocks": ShardPlan(mesh, waxes, {k[len(pre):]: tuple(v[1:])
+                                              for k, v in specs.items()
+                                              if k.startswith(pre)})}

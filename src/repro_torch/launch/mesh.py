@@ -15,9 +15,14 @@ A ``(workers, 'model')`` mesh (``make_worker_mesh(model=)``) is the model
 zoo's GSPMD path: ``launch/sharding.py``'s specs split each parameter over
 both axes (``core/sharded.ShardPlan``). ``make_test_mesh`` and
 ``make_production_mesh`` name the JAX package's meshes over the default
-group's ranks. The JAX package's ``set_mesh`` and ``shard_map`` are jax API
-with no counterpart: the mesh's process groups and explicit collectives
-take their place.
+group's ranks; Mode B's step (``launch/steps.py``) runs on them, its
+workers every axis but 'model'. Where those are more than one (``('pod',
+'data', 'model')``), the mesh also holds one process group across them,
+its ranks in the flattened worker order, pod-major: ``group`` and
+``coordinate`` take that tuple of axes as one axis. The
+JAX package's ``set_mesh`` and ``shard_map`` are jax API with no
+counterpart: the mesh's process groups and explicit collectives take their
+place.
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ class Mesh:
     sizes: Tuple[int, ...]
     device_mesh: Any = dataclasses.field(default=None, compare=False,
                                          repr=False)
+    # the worker axes' joint group, keyed by their tuple, where a mesh with
+    # 'model' has more than one worker axis
+    joint_groups: Any = dataclasses.field(default=None, compare=False,
+                                          repr=False)
 
     @property
     def shape(self) -> dict:
@@ -59,12 +68,25 @@ class Mesh:
                 "make_worker_mesh / make_lane_mesh")
         return self.device_mesh
 
-    def group(self, axis: str):
-        """This rank's process group along ``axis``."""
-        return self._built().get_group(axis)
+    def group(self, axis):
+        """This rank's process group along ``axis`` (a name, or the tuple of
+        the worker axes)."""
+        names = _names(axis)
+        if len(names) == 1:
+            return self._built().get_group(names[0])
+        if names not in (self.joint_groups or {}):
+            raise ValueError(f"{self} has no joint group over {names}")
+        return self.joint_groups[names]
 
-    def coordinate(self, axis: str) -> int:
-        """This rank's index along ``axis`` (0 on an axis of size 1)."""
+    def coordinate(self, axis) -> int:
+        """This rank's index along ``axis`` (0 on an axis of size 1); along
+        a tuple of axes, the flattened index, the first axis major."""
+        index = 0
+        for name in _names(axis):
+            index = index * self.shape[name] + self._coordinate(name)
+        return index
+
+    def _coordinate(self, axis: str) -> int:
         if self.shape[axis] == 1:
             return 0
         coord = self._built().get_coordinate()
@@ -73,6 +95,10 @@ class Mesh:
                 f"rank {dist.get_rank()} is not in {self} (the mesh takes "
                 f"the first {self.size} ranks of the default group)")
         return coord[self.axis_names.index(axis)]
+
+
+def _names(axis) -> Tuple[str, ...]:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
 
 
 def world_size() -> int:
@@ -96,8 +122,18 @@ def _make_mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
     if math.prod(sizes) == 1:
         return Mesh(axes, sizes)
     from torch.distributed.device_mesh import init_device_mesh
-    return Mesh(axes, sizes, init_device_mesh(_device_type(), sizes,
-                                              mesh_dim_names=axes))
+    device_mesh = init_device_mesh(_device_type(), sizes, mesh_dim_names=axes)
+    waxes = tuple(a for a in axes if a != "model")
+    if "model" not in axes or len(waxes) < 2:
+        return Mesh(axes, sizes, device_mesh)
+    # one group a 'model' coordinate over the worker axes, every rank making
+    # every group; a group's ranks ascend, which is the flattened order
+    m_at, n_m = axes.index("model"), sizes[axes.index("model")]
+    coords = [divmod(r, math.prod(sizes[m_at + 1:]))[0] % n_m
+              for r in range(math.prod(sizes))]
+    joint, _ = dist.new_subgroups_by_enumeration(
+        [[r for r, c in enumerate(coords) if c == col] for col in range(n_m)])
+    return Mesh(axes, sizes, device_mesh, {waxes: joint})
 
 
 def worker_axes(mesh) -> tuple:

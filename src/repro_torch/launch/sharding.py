@@ -12,14 +12,18 @@ A mesh is anything with ``axis_names`` and a ``shape`` dict
 spec tree on a ``(workers, 'model')`` mesh (``run_dynabro_scan(
 param_specs=)``).
 
-The JAX package's ``named``, ``sds``, ``sds_tree`` and ``batch_sds`` build
-JAX sharding types for its Mode B step builders and come with those
-(ROADMAP.md queue 1, 'Multi-device' (b)).
+The counterparts of the JAX package's sharding types, for the Mode B step
+builders (``launch/steps.py``): ``named`` pairs each spec with its mesh
+(``NamedSharding``), and ``sds``, ``sds_tree`` and ``batch_sds`` describe
+a step's inputs as ``SDS``, a tensor on the ``meta`` device (shape and
+dtype, nothing allocated) with its sharding, as a ``ShapeDtypeStruct``
+with a ``NamedSharding`` does there.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -114,12 +118,18 @@ def plan_params(cfg: ModelConfig, mesh, *, fsdp: bool, dtype=torch.bfloat16):
     return specs, plans
 
 
+def _map_specs(fn, spec_tree):
+    """``fn`` on each spec of a nest of dicts of spec tuples."""
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs(fn, v) for k, v in spec_tree.items()}
+    return fn(spec_tree)
+
+
 def strip_model(spec_tree):
     """The specs without their 'model' entries (None in their place), for
     regions split over the worker axes only."""
-    if isinstance(spec_tree, dict):
-        return {k: strip_model(v) for k, v in spec_tree.items()}
-    return tuple(None if e == "model" else e for e in spec_tree)
+    return _map_specs(lambda s: tuple(None if e == "model" else e for e in s),
+                      spec_tree)
 
 
 def opt_specs(opt_state, param_specs):
@@ -137,6 +147,74 @@ def opt_specs(opt_state, param_specs):
     if isinstance(state, dict):
         return {k: () for k in state}
     return ()  # adagrad-norm's scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec tuple over a mesh."""
+
+    mesh: Any
+    spec: Spec
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SDS:
+    """An input's shape and dtype (``meta``, a tensor on the ``meta``
+    device) and its sharding: the port's ``ShapeDtypeStruct``."""
+
+    meta: torch.Tensor
+    sharding: NamedSharding
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.meta.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.meta.dtype
+
+
+def named(mesh, spec_tree):
+    """Each spec of ``spec_tree`` as a ``NamedSharding`` over ``mesh``."""
+    return _map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def sds(shape, dtype, mesh, spec) -> SDS:
+    return SDS(torch.empty(tuple(shape), dtype=dtype, device="meta"),
+               NamedSharding(mesh, spec))
+
+
+def sds_tree(shapes, specs, mesh):
+    """``SDS`` for a nest of dicts and tuples of tensors (``abstract_params``,
+    an optimizer's state of them) and the matching nest of specs."""
+    if isinstance(shapes, dict):
+        return {k: sds_tree(v, specs[k], mesh) for k, v in shapes.items()}
+    if isinstance(shapes, tuple):
+        return tuple(sds_tree(a, s, mesh) for a, s in zip(shapes, specs))
+    return sds(shapes.shape, shapes.dtype, mesh, specs)
+
+
+def batch_sds(cfg: ModelConfig, mesh, global_batch: int, seq_len: int, *,
+              kind: str = "train", dtype=torch.bfloat16):
+    """(specs, example) of the input batch: the one builder both Mode B
+    train-step builders draw their batch specs and example ``SDS`` from, so
+    the family's ``extra`` leaves (audio frames, VLM patches) are in
+    both."""
+    spec = batch_specs(cfg, mesh, global_batch, kind)
+    B = global_batch
+    ex = {"tokens": sds((B, seq_len), torch.int32, mesh, spec["tokens"])}
+    if kind == "train":
+        ex["labels"] = sds((B, seq_len), torch.int32, mesh, spec["labels"])
+    if "extra" in spec:
+        extra = {}
+        if cfg.family == "audio":
+            extra["frames"] = sds((B, cfg.encoder_seq, cfg.d_model), dtype,
+                                  mesh, spec["extra"]["frames"])
+        if cfg.family == "vlm":
+            extra["patches"] = sds((B, cfg.n_image_tokens, cfg.d_model),
+                                   dtype, mesh, spec["extra"]["patches"])
+        ex["extra"] = extra
+    return spec, ex
 
 
 def batch_specs(cfg: ModelConfig, mesh, global_batch: int, kind: str):

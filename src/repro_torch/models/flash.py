@@ -16,8 +16,11 @@ rule is generated: the forward and backward are plain tensor code over
 Python-int arguments) and inside CUDA-graph capture (no host sync, no
 nested autograd in the backward). It takes no second derivative: its
 backward runs without recording a graph. The JAX package's mesh arguments
-(``shard_axis``, ``batch_axis``) take only "" here: sharding comes with
-ROADMAP.md queue 1's "Multi-device".
+(``shard_axis``, ``batch_axis``) are sharding hints there
+(``with_sharding_constraint``) that never change a value; the port's
+sharded paths compute a 'model' group's work on every rank of the group,
+so here they are accepted and change nothing. Splitting the attention's
+work over 'model' is the tensor-parallel forward (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -156,11 +159,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd) -> (B,Sq,H,hd). GQA via reshaping
     the q heads into (KV, G); ``window`` > 0 keeps the keys of the last
     ``window`` positions; the query at row i sits at position q_offset + i;
-    the keys are padded to a multiple of ``kv_chunk`` and masked there."""
-    if shard_axis or batch_axis:
-        raise NotImplementedError(
-            "flash_attention's shard_axis/batch_axis are not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, 'Multi-device')")
+    the keys are padded to a multiple of ``kv_chunk`` and masked there.
+    ``shard_axis`` / ``batch_axis`` (the mesh axes of the q-sequence and
+    batch dims) are placements with no effect on the values (module
+    docstring)."""
     out, _ = _FlashAttention.apply(q, k, v, bool(causal), int(window),
                                    int(q_offset), int(kv_chunk))
     return out

@@ -89,12 +89,12 @@ def moe_ffn(x: torch.Tensor, p: dict, *, top_k: int, capacity_factor: float,
     (GShard-style grouping) when it divides B·S and is smaller, each at
     its own capacity; the aux is then the groups' mean. A decode step (S ==
     1) routes its B tokens as one group at capacity B, so no token is
-    dropped. Returns (out (B,S,D), aux_loss scalar). ``expert_shard`` is not
-    ported."""
-    if expert_shard:
-        raise NotImplementedError(
-            "moe_ffn(expert_shard=) is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, 'Multi-device')")
+    dropped. Returns (out (B,S,D), aux_loss scalar). ``expert_shard``, the
+    mesh axis of the experts, is a sharding hint in the JAX package that
+    never changes a value; the port's sharded paths compute a 'model'
+    group's work on every rank of the group, so it changes nothing here
+    (splitting the experts over 'model' is the tensor-parallel forward,
+    ROADMAP.md queue 1)."""
     B, S, D = x.shape
     E = p["router"].shape[1]
     N = B * S

@@ -481,14 +481,18 @@ def _group(x, gp: Params, cfg: ModelConfig, kv_src, *, mode="train",
     return x, aux, cache
 
 
-def _group_fn(cfg: ModelConfig, names: Tuple[str, ...], n_kv: int, x, *rest):
+def _group_fn(cfg: ModelConfig, names: Tuple[str, ...], n_kv: int, hook, x,
+              *rest):
     """``_group`` in train mode over positional tensors: x, ``n_kv`` copies
     of ``kv_src`` in reverse order of use (a reading layer's k source, then
-    its v source), then the group's leaves in the order of ``names``.
-    Returns (x, aux)."""
+    its v source), then the group's leaves in the order of ``names``, passed
+    through ``hook(leaves, "blocks")`` where one is given. Returns (x,
+    aux)."""
     uses = rest[:n_kv][::-1]
     pairs = [(uses[i], uses[i + 1]) for i in range(0, n_kv, 2)]
     gp = dict(zip(names, rest[n_kv:]))
+    if hook is not None:
+        gp = hook(gp, "blocks")
     x, aux, _ = _group(x, gp, cfg, pairs or None)
     return x, aux
 
@@ -502,28 +506,31 @@ class _Group(torch.autograd.Function):
     autograd engine sums a tensor's gradients latest use first, and a
     Function's input gradients in input order: with one kv_src copy a use,
     in reverse order of use, kv_src's gradient is summed over the groups in
-    the order of the un-recomputed graph, bitwise."""
+    the order of the un-recomputed graph, bitwise. Under a param hook
+    (Mode B) the slices are the rank's blocks and the hook runs inside
+    ``_group_fn``: the backward gathers them again, so one group's full
+    parameters are alive at a time, as under the JAX package's checkpoint."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(cfg, names, n_kv, x, *rest):
-        return _group_fn(cfg, names, n_kv, x, *rest)
+    def forward(cfg, names, n_kv, hook, x, *rest):
+        return _group_fn(cfg, names, n_kv, hook, x, *rest)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.args = inputs[:3]
-        ctx.save_for_backward(*inputs[3:])
+        ctx.args = inputs[:4]
+        ctx.save_for_backward(*inputs[4:])
 
     @staticmethod
     def backward(ctx, dx, daux):
-        return (None, None, None) + recompute_vjp(
+        return (None, None, None, None) + recompute_vjp(
             lambda *a: _group_fn(*ctx.args, *a), ctx.saved_tensors, (dx, daux))
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             extra: Optional[dict] = None, mode: str = "train",
-            remat: bool = True, pad_to: int = 0):
+            remat: bool = True, pad_to: int = 0, param_hook=None):
     """Full causal forward of (B, S) tokens, ``extra`` the audio family's
     {"frames": (B, encoder_seq, D)} or the VLM's {"patches": (B,
     n_image_tokens, D)} (ignored by the other families). Returns (logits (B,
@@ -534,10 +541,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``remat=True`` (the default, as in the JAX package) recomputes each
     layer group in the backward (``_Group``) in train mode, with the same
     values and gradients, bitwise, as ``remat=False``; outside train mode
-    ``remat`` changes nothing, as in the JAX package."""
+    ``remat`` changes nothing, as in the JAX package.
+
+    ``param_hook(leaves, scope)`` transforms parameters at their point of
+    use: once on scope "top" (every leaf outside "blocks/"), and on scope
+    "blocks" for each layer group's slices (keyed under "blocks/"), inside
+    the group's recompute. Mode B threads its robust-aggregating gather
+    through it (``core/sharded.ParamHook``)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode {mode!r} is not 'train' or "
                          "'prefill' (decode_step runs one decode step)")
+    if param_hook is not None:
+        top = param_hook({k: v for k, v in params.items()
+                          if not k.startswith("blocks/")}, "top")
+        params = {**top, **{k: v for k, v in params.items()
+                            if k.startswith("blocks/")}}
     x = _embed_tokens(params, tokens, cfg)
     kv_src = _kv_src(params, cfg, extra or {})
     recompute = remat and mode == "train"
@@ -548,10 +566,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     for gp in _layers(params, "blocks/", cfg.n_groups):
         if recompute:
             names = tuple(sorted(gp))
-            x, aux = _Group.apply(cfg, names, len(kv), x, *kv,
+            x, aux = _Group.apply(cfg, names, len(kv), param_hook, x, *kv,
                                   *(gp[k] for k in names))
             cache = {}
         else:
+            if param_hook is not None:
+                gp = param_hook(gp, "blocks")
             x, aux, cache = _group(x, gp, cfg, kv_src, mode=mode,
                                    pad_to=pad_to)
         auxs.append(aux)
@@ -563,9 +583,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return logits, aux
 
 
-def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy + router aux."""
-    logits, aux = forward(params, batch["tokens"], cfg, extra=batch.get("extra"))
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            param_hook=None) -> torch.Tensor:
+    """Mean next-token cross-entropy + router aux; ``param_hook`` as in
+    ``forward``."""
+    logits, aux = forward(params, batch["tokens"], cfg, extra=batch.get("extra"),
+                          param_hook=param_hook)
     labels = batch["labels"].to(torch.int64)
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)

@@ -11,6 +11,9 @@ largest distance and the largest squared row norm: the Gram expansion
 cancels relative to the row norms, so at m = 1 the only distance is that
 cancellation residue.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -934,6 +937,54 @@ def test_scan_replay_loop_makes_no_host_sync(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="synchroniz"):
         run()
     assert torch.cuda.get_sync_debug_mode() == 0  # restored
+
+
+def test_capture_survives_graphs_in_a_reference_cycle(cuda_device):
+    """An earlier run's graphs left in a reference cycle (as a stopped
+    server and its thread leave a session) are not freed while a capture
+    runs: the collector stays off during it, even set to run at every
+    allocation, and is on again after the run. A CUDA graph freed
+    mid-capture, on any thread, ends the capture with
+    cudaErrorStreamCaptureInvalidated."""
+    from repro_torch import make_dynabro_scan_fn, run_dynabro_scan, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(cuda_device)
+
+    def run(scan_fn):
+        return run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
+                                _fig1_switcher(), sampler, 12, scan_fn=scan_fn)
+
+    class Cycle:
+        pass
+
+    old = Cycle()
+    old.me, old.scan_fn = old, make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1))
+    p_old, logs_old, _ = run(old.scan_fn)
+    assert old.scan_fn.captures
+    gone = weakref.ref(old)
+    del old
+    scan_fn = make_dynabro_scan_fn(grad_fn, cfg, sgd(0.1))
+    round_fn, seen = scan_fn.round_fn, []
+
+    def watched_round(*args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return round_fn(*args)
+
+    scan_fn.round_fn = watched_round
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        p_new, logs_new, _ = run(scan_fn)
+    finally:
+        gc.set_threshold(*threshold)
+    assert len(seen) == scan_fn.captures and scan_fn.captures
+    assert not any(seen), seen
+    assert gc.isenabled()
+    gc.collect()
+    assert gone() is None
+    assert [vars(l) for l in logs_new] == [vars(l) for l in logs_old]
+    for k in p_old:
+        assert torch.equal(p_new[k], p_old[k])
 
 
 def test_failed_capture_raises(cuda_device):

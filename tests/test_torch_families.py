@@ -187,10 +187,11 @@ def test_moe_ffn_drops_tokens_at_tiny_capacity():
 
 
 def test_moe_unported_branches_raise():
-    """``expert_shard`` raises, naming "Multi-device". The decode branch (S
-    == 1), which raised before the decode entry points were ported (the
-    name is kept), now routes its tokens as JAX's does, at capacity B
-    (``tests/test_torch_decode.py`` holds it in full)."""
+    """The branches that raised before they were ported (the name is
+    kept): the decode branch (S == 1) routes its tokens as JAX's does, at
+    capacity B (``tests/test_torch_decode.py`` holds it in full), and
+    ``expert_shard``, a placement with no effect on the values, gives the
+    output and aux of JAX's with it set, bitwise those without it."""
     p = _torch_tree(_moe_params(0))
     x = _normal(9, (2, 1, 16))
     want, want_aux = j_moe.moe_ffn(jnp.asarray(x), _moe_params(0),
@@ -198,9 +199,15 @@ def test_moe_unported_branches_raise():
     got, aux = t_moe.moe_ffn(_t(x), p, top_k=2, capacity_factor=1.0)
     _close(got, want)
     _close(aux, want_aux)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_moe.moe_ffn(torch.zeros(2, 4, 16), p, top_k=2, capacity_factor=1.0,
-                      expert_shard="data")
+    x = _normal(10, (2, 4, 16))
+    want, want_aux = j_moe.moe_ffn(jnp.asarray(x), _moe_params(0), top_k=2,
+                                   capacity_factor=1.0, expert_shard="data")
+    plain = t_moe.moe_ffn(_t(x), p, top_k=2, capacity_factor=1.0)
+    got, aux = t_moe.moe_ffn(_t(x), p, top_k=2, capacity_factor=1.0,
+                             expert_shard="data")
+    assert torch.equal(got, plain[0]) and torch.equal(aux, plain[1])
+    _close(got, want)
+    _close(aux, want_aux)
 
 
 # ------------------------------------------------------------- Mamba

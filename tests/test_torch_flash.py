@@ -147,9 +147,17 @@ def test_flash_saves_only_its_inputs_and_output():
 
 @pytest.mark.parametrize("axis", ["shard_axis", "batch_axis"])
 def test_flash_mesh_arguments_raise(axis):
-    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(CASES[0]))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        t_flash.flash_attention(q, k, v, **{axis: "model"})
+    """The mesh arguments, which raised before Mode B was ported (the name
+    is kept), are placements with no effect on the values: the output and
+    the vjp with ``axis`` set are bitwise those without it."""
+    q, k, v, do = (torch.from_numpy(a).requires_grad_() for a in
+                   _inputs(CASES[0]))
+    outs = []
+    for kw in ({}, {axis: "model"}):
+        out = t_flash.flash_attention(q, k, v, **kw)
+        outs.append((out,) + torch.autograd.grad(out, (q, k, v), do))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("impl", ["flash", "chunked"])
