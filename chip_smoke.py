@@ -9,7 +9,8 @@ sources there (``nvcc``, one process per source, all started together, into
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, the build time and every kernel instance's registers and
-     spills;
+     spills; runs the port's static pass, ``python -m repro_torch.lint
+     --check``, in a subprocess, which must exit 0;
   2. holds every kernel against its plain PyTorch version on the card over a
      sweep of shapes, dtypes and modes, a 1e30 outlier row and a NaN entry:
      ``cw_reduce``, ``weighted_combine`` and ``combine_reduce`` at
@@ -68,10 +69,17 @@ sources there (``nvcc``, one process per source, all started together, into
      worker momentum (``run_momentum``, ``run_momentum_scan``) under the
      momentum-tailored switcher and shift, beside DynaBRO's compiled driver;
   7. drives the ``repro_torch.api`` facade at full width: ``build_session``
-     with CWTM under sign_flip and random, ``Session.run(150)`` bitwise
-     equal to ``run_dynabro_scan``, 150 ``Session.step`` calls bitwise equal
-     to ``run`` (no capture after the first step), a checkpoint at t = 75
-     resumed bitwise (``session_path``); two lane-batched sweeps through
+     with CWTM under sign_flip and random, guarded (``guard_recompiles=
+     True``), ``Session.run(150)`` bitwise equal to ``run_dynabro_scan``
+     and capturing each level once, a second ``run(150)`` under the
+     recompile guard with no capture, 150 ``Session.step`` calls bitwise
+     equal to ``run`` (no capture; a level's first step is warmup, the
+     rest guarded), a checkpoint at t = 75 resumed bitwise
+     (``session_path``); then, its graphs dropped, a guarded ``run(150)``
+     raising ``RecompileError`` with its captures counted, a
+     ``recompile_guard(action="count")`` counting them without raising,
+     and an exception inside a guarded block coming through unmasked
+     (``forced_recapture``); two lane-batched sweeps through
      ``Session.sweep`` (``sweep_path``): grid 1, 8 CWTM lanes of {sign_flip,
      ipm} x Periodic K in {10, 25} x trim {8, 6} with one ``cw_reduce``
      launch an aggregation for all of them, again with the deltas swapped
@@ -86,9 +94,11 @@ sources there (``nvcc``, one process per source, all started together, into
   8. drives the aggregation service ``repro_torch.serve`` on the Figure-1
      setting (``serve_path``): (a) 17 ``SimulatedWorkers`` threads stream
      2,550 updates into an ``AggregationServer`` over ``build_session``,
-     the health polled over HTTP until "completed": params bitwise equal to
-     a fresh session's ``Session.run(150)``, its logs, 440 ``cw_reduce``
-     launches, every round a graph replay under the sync check, each level
+     the session built with ``REPRO_RECOMPILE_GUARD=1`` (every round after
+     a level's first guarded, no ``RecompileError``, no capture in the
+     timed pairs), the health polled over HTTP until "completed": params
+     bitwise equal to a fresh session's ``Session.run(150)``, its logs,
+     440 ``cw_reduce`` launches, every round a graph replay under the sync check, each level
      captured once, on the serve thread, with the worker threads alive;
      rounds/s, updates/s, staleness, ring high-water and the last round's
      seconds, beside 150 ``Session.step`` calls in turns; (b) under the
@@ -199,7 +209,9 @@ sources there (``nvcc``, one process per source, all started together, into
      bfloat16, and over the zoo's 11-leaf tree beside ``torch.median`` and
      its 2.70 ms bytes bound, and over whisper-base's 33-leaf tree (two
      launches) beside its 2.449 ms bound;
- 11. prints the ``{"kernels": [...]}`` summary (each kernel's launches by
+ 11. prints the ``{"lint": {...}}`` line (the static pass; each guarded
+     path's warmup captures and steady-state compiles; the forced counts),
+     the ``{"kernels": [...]}`` summary (each kernel's launches by
      path, the served and halving paths among them), then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -244,6 +256,7 @@ from repro_torch import (  # noqa: E402
     run_dynabro_scan, run_matrix, run_momentum, run_momentum_scan,
     save_checkpoint, scenario_grid, sgd, worker_payloads,
 )
+from repro_torch.api.session import GUARD_ENV  # noqa: E402
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import aggregators  # noqa: E402
@@ -255,6 +268,9 @@ from repro_torch.serve import smoke as serve_smoke  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.lint import (  # noqa: E402
+    RecompileError, compile_count, recompile_guard,
+)
 from repro_torch.core.mlmc import mlmc_combine  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_test_mesh  # noqa: E402
@@ -1313,13 +1329,64 @@ def bitwise(a, b):
     return all(torch.equal(a[k], b[k]) for k in a)
 
 
+# the recompile guard's counts on each guarded path: {"lint": ...}
+LINT = {}
+
+
+def forced_recapture(sess, task, cfg, p_run, levels):
+    """On the warmed guarded session: its graphs dropped, a guarded
+    ``run(150)`` raises ``RecompileError`` naming its captures; a
+    ``recompile_guard(action="count")`` over a run on the same scan_fn
+    counts them without raising (the run bitwise ``run``'s); an exception
+    inside a guarded block comes through unmasked, its count kept."""
+    params0, grad_fn, sampler, _ = task
+    sess.scan_fn.drop_graphs()
+    c0 = compile_count()
+    try:
+        sess.run(T)
+    except RecompileError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a guarded run after drop_graphs did not raise")
+    captured = compile_count() - c0
+    assert captured == len(levels), (captured, levels)
+    assert raised.startswith(f"Session.run (T={T}): {captured} recompile"), raised
+
+    def rerun():
+        return run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg, periodic(),
+                                sampler, T, seed=0, scan_fn=sess.scan_fn)[0]
+
+    sess.scan_fn.drop_graphs()
+    with recompile_guard("forced recapture, counted", action="count") as g:
+        p = rerun()
+    assert g.count == len(levels) and bitwise(p, p_run), g
+    sess.scan_fn.drop_graphs()
+    try:
+        with recompile_guard("forced recapture, raise-through") as through:
+            rerun()
+            raise RuntimeError("original failure")
+    except RuntimeError as e:
+        assert str(e) == "original failure", e
+    else:
+        raise AssertionError("the guard swallowed the block's exception")
+    assert through.count == len(levels), through
+    return {"guarded_run_raised": raised, "guarded_run_captures": captured,
+            "action_count": g.count, "action_count_bitwise_equal_run": True,
+            "raise_through_unmasked": True,
+            "raise_through_count": through.count}
+
+
 def session_path(task):
     """``build_session`` on the Figure-1 task with CWTM under sign_flip and
-    under random (Periodic(10)): ``Session.run(150)`` bitwise equal to
-    ``run_dynabro_scan``; 150 calls of ``Session.step`` bitwise equal to
-    ``run``, each ``StepInfo`` against the run's round logs, with no capture
-    after the first step; a checkpoint of the carry at t = 75, loaded into a
-    new session and stepped to 150, bitwise equal to ``run``."""
+    under random (Periodic(10)), the session guarded
+    (``guard_recompiles=True``): ``Session.run(150)`` bitwise equal to
+    ``run_dynabro_scan``, capturing each level once, and a second
+    ``run(150)`` under the guard bitwise equal with no capture; 150 calls of
+    ``Session.step`` bitwise equal to ``run``, each ``StepInfo`` against the
+    run's round logs, with no capture (a level's first step is warmup, the
+    rest run guarded); a checkpoint of the carry at t = 75, loaded into a
+    new guarded session and stepped to 150, bitwise equal to ``run``; then
+    (sign_flip) the forced recapture (``forced_recapture``)."""
     params0, grad_fn, sampler, _ = task
     rows = []
     for attack, kwargs in [("sign_flip", None), ("random", {"scale": 10.0})]:
@@ -1327,20 +1394,30 @@ def session_path(task):
 
         def session():
             return build_session(cfg, mlp_task(task), opt=sgd(0.1),
-                                 switcher=periodic(), seed=0)
+                                 switcher=periodic(), seed=0,
+                                 guard_recompiles=True)
 
         sess = session()
         reset_launches()
+        c0 = compile_count()
         with watch_replays() as modes:
             (p_run, logs, _), run_s = timed(lambda: sess.run(T))
+        run_warmup = compile_count() - c0
         run_launches = LAUNCHES["cw_reduce"]
+        levels = sorted({l.level for l in logs})
+        assert run_warmup == len(levels) == sess.scan_fn.captures, run_warmup
         p_ref, logs_ref, _ = run_dynabro_scan(grad_fn, params0, sgd(0.1), cfg,
                                               periodic(), sampler, T, seed=0)
         assert bitwise(p_run, p_ref), f"session {attack}: run vs run_dynabro_scan"
         assert [vars(l) for l in logs] == [vars(l) for l in logs_ref]
+        c0 = compile_count()
+        (p_again, _, _), again_s = timed(lambda: sess.run(T))  # guarded
+        run_steady = compile_count() - c0
+        assert run_steady == 0 and bitwise(p_again, p_run), run_steady
         sched = sess.schedule(T)
         carry = sess.init_carry()
         reset_launches()
+        c0 = compile_count()
         t0 = time.perf_counter()
         infos, captures = [], None
         with watch_replays() as step_modes:
@@ -1353,7 +1430,12 @@ def session_path(task):
                     mid = (carry, t + 1)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
+        step_compiles = compile_count() - c0
         step_launches = LAUNCHES["cw_reduce"]
+        step_sigs = sorted(sig[2] for sig in sess._steady_sigs
+                           if sig[0] == "step")
+        assert step_compiles == 0, step_compiles
+        assert step_sigs == [(j,) for j in levels], step_sigs
         assert bitwise(carry[0], p_run), f"session {attack}: steps vs run"
         assert [i.failsafe_ok for i in infos] == [l.failsafe_ok for l in logs]
         assert all(i.corr_norm == 0.0 for i, l in zip(infos, logs)
@@ -1365,12 +1447,23 @@ def session_path(task):
             resumed_sess = session()
             resumed = load_checkpoint(path, resumed_sess.init_carry())
             start = checkpoint_step(path)
+        c0 = compile_count()
         for t in range(start, T):
             resumed, _ = resumed_sess.step(
                 resumed, resumed_sess.round_inputs(resumed_sess.schedule(T), t))
+        resume_warmup = compile_count() - c0
+        resume_levels = {int(j) for j in sched.levels[start:]}
+        assert resume_warmup == len(resume_levels), resume_warmup
         assert bitwise(resumed[0], p_run), f"session {attack}: resume at {start}"
         assert len(step_modes) == T == step_modes.count(SYNC_DEBUG_ERROR)
         assert len(modes) == T and step_launches == run_launches == 440
+        LINT[f"session {attack}"] = {
+            "levels": levels, "run_warmup_captures": run_warmup,
+            "second_run_compiles": run_steady,
+            "step_compiles": step_compiles,
+            "guarded_steps": T - len(step_sigs),
+            "resumed_steps_warmup_captures": resume_warmup,
+            "resumed_steps_guarded": T - start - resume_warmup}
         rows.append({"attack": attack, "run_bitwise_equal_run_dynabro_scan": True,
                      "steps_bitwise_equal_run": True, "step_infos_equal_logs": True,
                      "captures_after_first_step": captures,
@@ -1379,8 +1472,11 @@ def session_path(task):
                      "checkpoint_step": start, "resume_bitwise_equal_run": True,
                      "cw_reduce_launches": {"run": run_launches,
                                             "steps": step_launches},
-                     "run_s": run_s, "steps_s": step_s,
-                     "step_rounds_per_s": T / step_s})
+                     "run_s": run_s, "guarded_run_s": again_s,
+                     "steps_s": step_s, "step_rounds_per_s": T / step_s})
+        if attack == "sign_flip":
+            LINT["forced recapture"] = forced_recapture(sess, task, cfg,
+                                                        p_run, levels)
     emit({"phase": "session_path", "T": T, "m": M, "rule": "cwtm",
           "rows": rows})
     return {"cw_reduce": 440}
@@ -1637,12 +1733,14 @@ def serve_path(task):
     """The aggregation service on the Figure-1 setting (CWTM at trim 8,
     sign_flip under Periodic(10), T=150, sgd(0.1)), each row a hard
     failure: (a) 17 ``SimulatedWorkers`` threads (2 ms jitter) stream 2,550
-    updates, the health polled over HTTP until "completed": params bitwise
+    updates into a session built with ``REPRO_RECOMPILE_GUARD=1`` (a
+    level's first round captures, every later round runs guarded), the
+    health polled over HTTP until "completed": params bitwise
     equal to a fresh session's ``Session.run(150)``, its logs, 440
     ``cw_reduce`` launches, every round a graph replay under the sync
     check, each level captured once, on the serve thread, with the worker
     threads alive; then a served stream and 150 ``Session.step`` calls on
-    the same session, in turns; (b) under the random attack, periodic
+    the same session, in turns, with no compile; (b) under the random attack, periodic
     checkpoints every 25 rounds, a kill after round 80 and a resume from 75
     bitwise equal to ``run``, with a final checkpoint at 150; (c) three
     stragglers on two rounds masked after a 0.25 s deadline, bitwise equal
@@ -1654,15 +1752,27 @@ def serve_path(task):
         return build_session(cfg, mlp_task(task), opt=sgd(0.1),
                              switcher=periodic(), seed=0)
 
-    # (a) a full stream
+    # (a) a full stream, its session guarded from the environment (read
+    # when the session is built)
     cfg = fig1_cfg("cwtm")
     p_ref, logs_ref, _ = session(cfg).run(T)
-    sess = session(cfg)
+    env_before = os.environ.get(GUARD_ENV)
+    os.environ[GUARD_ENV] = "1"
+    try:
+        sess = session(cfg)
+    finally:
+        if env_before is None:
+            del os.environ[GUARD_ENV]
+        else:
+            os.environ[GUARD_ENV] = env_before
+    assert sess.guard_recompiles, "serve: the env var did not guard"
     payloads = worker_payloads(sess, T)
     reset_launches()
+    c0 = compile_count()
     with watch_replays() as modes, watch_captures() as caps:
         server, snap, health, first_s = serve(sess, payloads, ServeConfig(
             capacity=1024, lookahead_rounds=8, health_port=0))
+    serve_warmup = compile_count() - c0
     launches = {k: v for k, v in LAUNCHES.items() if v}
     levels = sorted({l.level for l in logs_ref})
     assert bitwise(server.params, p_ref), "serve: stream vs Session.run"
@@ -1674,7 +1784,7 @@ def serve_path(task):
     assert sorted(l for c in caps for l in c["levels"]) == levels, caps
     assert all(c["thread"] == "serve-loop" for c in caps), caps
     assert caps[0]["workers_alive"] == M, caps
-    assert sess.scan_fn.captures == len(levels)
+    assert sess.scan_fn.captures == len(levels) == serve_warmup, serve_warmup
     rows = [{"stream": "a", "bitwise_equal_run": True, "logs_equal": True,
              "updates_accepted": snap["updates_accepted"],
              "cw_reduce_launches": launches["cw_reduce"],
@@ -1685,6 +1795,7 @@ def serve_path(task):
     sched = sess.schedule(T)
     inputs = [sess.round_inputs(sched, t) for t in range(T)]
     pairs = []
+    c0 = compile_count()
     for _ in range(SERVE_TIMED_PAIRS):
         _, snap2, _, serve_s = serve(sess, payloads, ServeConfig(
             capacity=1024, lookahead_rounds=8))
@@ -1702,7 +1813,17 @@ def serve_path(task):
                       "serve_minus_step_ms_a_round":
                           (serve_s - step_s) / T * 1e3})
     assert sess.scan_fn.captures == len(levels), "serve: a timed run captured"
+    serve_steady = compile_count() - c0
+    assert serve_steady == 0, serve_steady
     rows[0]["timed_pairs"] = pairs
+    step_sigs = sorted(sig[2] for sig in sess._steady_sigs if sig[0] == "step")
+    assert step_sigs == [(j,) for j in levels], step_sigs
+    LINT["serve a (REPRO_RECOMPILE_GUARD=1)"] = {
+        "levels": levels, "stream_warmup_captures": serve_warmup,
+        "stream_guarded_rounds": T - len(levels),
+        "timed_pairs_compiles": serve_steady,
+        "timed_pairs_guarded_rounds": 2 * T * SERVE_TIMED_PAIRS,
+        "recompile_errors": 0}
 
     # (b) kill and resume, under the random attack
     cfg_r = fig1_cfg("cwtm", attack="random", kwargs={"scale": 10.0})
@@ -3763,6 +3884,20 @@ def kernel_entry(name, source, replaces, launches, by_path, err, row, lib_row,
             "library": library, **extra}
 
 
+def static_lint():
+    """``python -m repro_torch.lint --check`` over the port's trees, in a
+    subprocess; fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "--check"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return {"command": "python -m repro_torch.lint --check",
+            "rc": out.returncode, "output": out.stdout.strip(),
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3783,6 +3918,7 @@ def main():
           "build_seconds": build_s})
     for name in LIBRARIES:
         emit({"phase": "ptxas", **ptxas_report(name)})
+    LINT["static pass"] = static_lint()
 
     worst, n_checks = check_kernels(dev)
     emit({"phase": "kernel_check", "kernel": "cw_reduce", "comparisons": n_checks,
@@ -3912,6 +4048,7 @@ def main():
             name, source, replaces, by_path[path][name], launches_of(name), err,
             row, row if library else None, library,
             check_max_err=geo_worst[name], shape=shape, case=case, **extra))
+    emit({"lint": LINT})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

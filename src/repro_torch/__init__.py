@@ -24,36 +24,52 @@ successive-halving sweep ``Session.sweep_halving``; and the aggregation
 service ``repro_torch.serve`` (a threaded server stepping a ``Session``
 from worker updates); and Mode A's multi-device drivers over
 ``torch.distributed`` (``make_worker_mesh`` / ``make_lane_mesh``, the
-compiled drivers' ``mesh=`` and the sweeps' ``lane_mesh=``). Its names are
-re-exported here.
+compiled drivers' ``mesh=`` and the sweeps' ``lane_mesh=``), the model zoo's
+GSPMD path and Mode B's robust step (``launch``); and ``lint``: the static
+pass ``python -m repro_torch.lint`` and the runtime sanitizers (the
+recompile guard over CUDA-graph captures and ``nvcc`` builds, which
+``Session(guard_recompiles=True)`` runs, and the NaN tripwire). Its names
+are re-exported here.
+
+The names load on first use (PEP 562), so ``import repro_torch`` imports
+neither torch nor a submodule: ``python -m repro_torch.lint`` runs where
+torch is not installed.
 """
-from repro_torch.api import (
-    AggSpec, AttackSpec, DynaBROConfig, MLMCConfig, Optimizer, RoundInputs,
-    RoundLog, RoundSchedule, Scenario, Session, StepInfo, SweepSpec,
-    Switcher, Task, adagrad_norm, adam, build_session, format_table,
-    get_switcher, make_dynabro_scan_fn, make_lane_mesh, make_momentum_scan_fn,
-    make_quadratic_task, make_worker_mesh, momentum, run_dynabro,
-    run_dynabro_scan, run_dynabro_scan_sweep, run_matrix, run_momentum,
-    run_momentum_scan, run_scenario, scenario_grid, sgd,
-)
-from repro_torch.checkpoint import (
-    checkpoint_step, latest_checkpoint, load_checkpoint, save_checkpoint,
-)
-from repro_torch.convert import (
-    params_from_numpy, params_to_numpy, zoo_cache_from_numpy,
-    zoo_cache_to_numpy, zoo_params_from_numpy, zoo_params_to_numpy,
-)
-from repro_torch.core import (
-    get_aggregator, get_attack, make_dynabro_step, make_momentum_step,
-)
-from repro_torch.data import SyntheticLMData, make_task
-from repro_torch.device import resolve_device
-from repro_torch.kernels import LAUNCHES
-from repro_torch.models import make_zoo_task, task_for_config
-from repro_torch.serve import (
-    AggregationServer, HealthEndpoint, MetricsLog, RingBuffer, ServeConfig,
-    ServeMetrics, SimulatedWorkers, Update, worker_payloads,
-)
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "repro_torch.api": (
+        "AggSpec", "AttackSpec", "DynaBROConfig", "MLMCConfig", "Optimizer",
+        "RoundInputs", "RoundLog", "RoundSchedule", "Scenario", "Session",
+        "StepInfo", "SweepSpec", "Switcher", "Task", "adagrad_norm", "adam",
+        "build_session", "format_table", "get_switcher",
+        "make_dynabro_scan_fn", "make_lane_mesh", "make_momentum_scan_fn",
+        "make_quadratic_task", "make_worker_mesh", "momentum", "run_dynabro",
+        "run_dynabro_scan", "run_dynabro_scan_sweep", "run_matrix",
+        "run_momentum", "run_momentum_scan", "run_scenario", "scenario_grid",
+        "sgd"),
+    "repro_torch.checkpoint": (
+        "checkpoint_step", "latest_checkpoint", "load_checkpoint",
+        "save_checkpoint"),
+    "repro_torch.convert": (
+        "params_from_numpy", "params_to_numpy", "zoo_cache_from_numpy",
+        "zoo_cache_to_numpy", "zoo_params_from_numpy", "zoo_params_to_numpy"),
+    "repro_torch.core": (
+        "get_aggregator", "get_attack", "make_dynabro_step",
+        "make_momentum_step"),
+    "repro_torch.data": ("SyntheticLMData", "make_task"),
+    "repro_torch.device": ("resolve_device",),
+    "repro_torch.kernels": ("LAUNCHES",),
+    "repro_torch.models": ("make_zoo_task", "task_for_config"),
+    "repro_torch.serve": (
+        "AggregationServer", "HealthEndpoint", "MetricsLog", "RingBuffer",
+        "ServeConfig", "ServeMetrics", "SimulatedWorkers", "Update",
+        "worker_payloads"),
+}
+_WHERE = {name: module for module, names in _EXPORTS.items()
+          for name in names}
 
 __all__ = [
     # repro.api's names
@@ -84,3 +100,16 @@ __all__ = [
     "ServeMetrics", "MetricsLog", "HealthEndpoint",
     "SimulatedWorkers", "worker_payloads",
 ]
+
+
+def __getattr__(name: str):
+    module = _WHERE.get(name)
+    if module is None:
+        raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_WHERE))

@@ -31,10 +31,11 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import os
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -45,31 +46,10 @@ from repro_torch.core import attacks as attacks_lib
 from repro_torch.core import robust_train as rt
 from repro_torch.core import sharded
 from repro_torch.core.switching import Switcher
+from repro_torch.lint import runtime as sanitizers
 from repro_torch.optim.optimizers import Optimizer
 
 GUARD_ENV = "REPRO_RECOMPILE_GUARD"
-TRIPWIRE_ENV = "REPRO_NAN_TRIPWIRE"
-
-
-def _env_on(name: str) -> bool:
-    return os.environ.get(name, "").lower() in ("1", "true", "on")
-
-
-def maybe_assert_finite(params, label: str, enabled: Optional[bool]) -> None:
-    """The NaN tripwire: with ``enabled`` (None: the ``REPRO_NAN_TRIPWIRE``
-    env var, '1'/'true'/'on'), read the floating leaves of the parameter
-    dict back to the host and raise ``FloatingPointError`` naming the first
-    with a non-finite value."""
-    if not (_env_on(TRIPWIRE_ENV) if enabled is None else enabled):
-        return
-    for key, leaf in sorted(params.items()):
-        if not leaf.is_floating_point():
-            continue
-        finite = torch.isfinite(leaf)
-        if not bool(finite.all()):
-            raise FloatingPointError(
-                f"{label}: {int((~finite).sum())} non-finite value(s) at leaf "
-                f"{key!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +116,19 @@ class Session:
     ``init_carry`` places the params per their specs, so its carries, and
     ``step``'s, hold this rank's blocks (``scan_fn.full(carry[0])`` gathers
     the full params), while ``run`` returns full params.
-    ``guard_recompiles=True`` is not ported and raises
-    ``NotImplementedError`` naming its ROADMAP.md item; ``nan_tripwire``
-    (None: the ``REPRO_NAN_TRIPWIRE`` env var) reads the params back after
-    each step and run and raises on a non-finite value.
+    ``guard_recompiles`` (None: the ``REPRO_RECOMPILE_GUARD`` env var,
+    '1'/'true'/'on') runs each ``step`` and compiled ``run`` whose
+    signature was seen before under ``lint.runtime.recompile_guard``: the
+    first call with a signature is warmup and may capture; a later one that
+    captures a level graph (or builds a kernel) raises ``RecompileError``.
+    A signature holds the call's shapes and dtypes and, unlike the JAX
+    package's, the MLMC level(s) it runs (the level for ``step``, the
+    schedule's set of levels for ``run``): each level is its own graph,
+    captured at its first use, where the JAX step compiles once for every
+    level. The sweeps are not guarded (the halving captures its shrunk
+    batches anew at each rung). ``nan_tripwire`` (None: the
+    ``REPRO_NAN_TRIPWIRE`` env var) reads the params back after each step
+    and run and raises on a non-finite value.
     """
 
     def __init__(self, cfg, *, grad_fn, params0, opt: Optional[Optimizer] = None,
@@ -161,9 +150,6 @@ class Session:
             raise ValueError("dynabro sessions need opt= (an Optimizer)")
         if mode == "momentum" and (lr is None or beta is None):
             raise ValueError("momentum sessions need lr= and beta=")
-        if guard_recompiles is None:
-            guard_recompiles = _env_on(GUARD_ENV)
-        rt._refuse_unported(guard_recompiles=guard_recompiles)
         rt._check_param_specs(mesh, param_specs)
         self.cfg = cfg
         self.grad_fn = grad_fn
@@ -181,7 +167,16 @@ class Session:
         self.param_specs = param_specs
         self.microbatch = microbatch
         self.m = m if m is not None else (switcher.m if switcher else None)
+        # runtime sanitizers: the recompile guard asserts a signature seen
+        # once never captures again (the service inherits it through step);
+        # the NaN tripwire reads the params back. Both default to their env
+        # opt-ins (REPRO_RECOMPILE_GUARD / REPRO_NAN_TRIPWIRE).
+        if guard_recompiles is None:
+            guard_recompiles = os.environ.get(GUARD_ENV, "").lower() in (
+                "1", "true", "on")
+        self.guard_recompiles = guard_recompiles
         self.nan_tripwire = nan_tripwire
+        self._steady_sigs: Set[Tuple] = set()
         if mesh is not None:
             if self.m is None:
                 raise ValueError("mesh= needs a worker count: pass switcher= "
@@ -286,6 +281,20 @@ class Session:
         batches = tree_map(lambda l: l[:, 0], self.sample_batches(t, 1))
         return RoundInputs(t, 0, batches, sched.masks[t], sched.keys[t])
 
+    def _steady_guard(self, tag: str, levels, xs, label: str):
+        """A ``recompile_guard`` once this (tag, levels, xs shapes/dtypes)
+        signature has been seen (the first call with a signature is warmup:
+        it may capture), else a null context that records the signature."""
+        if not self.guard_recompiles:
+            return contextlib.nullcontext()
+        shapes = tuple((tuple(l.shape), str(l.dtype)) if hasattr(l, "shape")
+                       else l for l in tree_leaves(xs))
+        sig: Tuple = (tag, self.mode, tuple(levels)) + shapes
+        if sig in self._steady_sigs:
+            return sanitizers.recompile_guard(label)
+        self._steady_sigs.add(sig)
+        return contextlib.nullcontext()
+
     def step(self, carry, inputs: RoundInputs):
         """Advance one round: the round of the compiled driver at the
         round's level (on a card the replay of the level's graph that
@@ -295,11 +304,14 @@ class Session:
         dev = rt._device_of(carry[0])
         state = carry[2] if self._draws else None
         masks = torch.as_tensor(np.asarray(inputs.masks), device=dev)
-        core, ok, dn, state = self.scan_fn.run_round(
-            carry[:2], int(inputs.level), inputs.batches, masks, state)
+        level = int(inputs.level)
+        with self._steady_guard("step", (level,), (inputs.batches, masks),
+                                f"Session.step (round {inputs.t})"):
+            core, ok, dn, state = self.scan_fn.run_round(
+                carry[:2], level, inputs.batches, masks, state)
         carry = core + ((state,) if self._draws else ())
-        maybe_assert_finite(carry[0], f"Session.step round {inputs.t}",
-                            self.nan_tripwire)
+        sanitizers.maybe_assert_finite(
+            carry[0], f"Session.step round {inputs.t}", self.nan_tripwire)
         if self.mode == "dynabro":
             return carry, StepInfo(failsafe_ok=bool(ok), corr_norm=float(dn))
         return carry, StepInfo()
@@ -329,27 +341,39 @@ class Session:
                                      self.sample_batches, T, step=step,
                                      **common)
             else:
-                out = rt.run_dynabro_scan(
-                    self.grad_fn, self.params0, self.opt, self.cfg,
-                    self.switcher, self.sample_batches, T, chunk=chunk,
-                    scan_fn=self.scan_fn, microbatch=self.microbatch,
-                    vectorize_batches=self.vectorize_batches, **sharding,
-                    **common)
+                with self._run_guard(T, eval_fn, eval_every, chunk):
+                    out = rt.run_dynabro_scan(
+                        self.grad_fn, self.params0, self.opt, self.cfg,
+                        self.switcher, self.sample_batches, T, chunk=chunk,
+                        scan_fn=self.scan_fn, microbatch=self.microbatch,
+                        vectorize_batches=self.vectorize_batches,
+                        **sharding, **common)
         elif driver == "legacy":
             out = rt.run_momentum(self.grad_fn, self.params0, self.cfg,
                                   self.switcher, self.sample_batches, T,
                                   lr=self.lr, beta=self.beta, step=step,
                                   **common)
         else:
-            out = rt.run_momentum_scan(
-                self.grad_fn, self.params0, self.cfg, self.switcher,
-                self.sample_batches, T, lr=self.lr, beta=self.beta,
-                chunk=chunk, scan_fn=self.scan_fn,
-                vectorize_batches=self.vectorize_batches, **sharding,
-                **common)
-        maybe_assert_finite(out[0], f"Session.run ({driver}, T={T})",
-                            self.nan_tripwire)
+            with self._run_guard(T, eval_fn, eval_every, chunk):
+                out = rt.run_momentum_scan(
+                    self.grad_fn, self.params0, self.cfg, self.switcher,
+                    self.sample_batches, T, lr=self.lr, beta=self.beta,
+                    chunk=chunk, scan_fn=self.scan_fn,
+                    vectorize_batches=self.vectorize_batches, **sharding,
+                    **common)
+        sanitizers.maybe_assert_finite(
+            out[0], f"Session.run ({driver}, T={T})", self.nan_tripwire)
         return out
+
+    def _run_guard(self, T: int, eval_fn, eval_every: int, chunk: int):
+        """``_steady_guard`` of a compiled run: its signature is T, its
+        segments' bounds and the schedule's set of levels."""
+        if not self.guard_recompiles or T <= 0:
+            return contextlib.nullcontext()
+        levels = sorted({int(j) for j in self.schedule(T).levels})
+        bounds = rt._segment_bounds(T, eval_every if eval_fn else 0, chunk)
+        return self._steady_guard("run", levels, (T, bounds),
+                                  f"Session.run (T={T})")
 
     # ------------------------------------------------------------- sweep
 

@@ -51,6 +51,7 @@ import dataclasses
 import functools
 import gc
 import math
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -75,6 +76,24 @@ GradFn = Callable[[Any, Any], Any]  # (params, unit_batch) -> grad dict
 F32 = torch.float32
 DYNABRO_SEED = 100_003  # the random attack's generator: seed * this a run
 MOMENTUM_SEED = 77_003
+
+# The level graphs captured by this process, on any thread (the aggregation
+# service captures on its serve thread): one a level key, however many
+# pieces a worker mesh cuts it into. With ``kernels.build.BUILDS`` these are
+# the port's compiles, which ``lint.runtime.recompile_guard`` counts.
+CAPTURES = {"captures": 0}
+_CAPTURES_LOCK = threading.Lock()
+
+
+def count_captures(n: int = 1) -> None:
+    """Add ``n`` level-graph captures to ``CAPTURES``."""
+    with _CAPTURES_LOCK:
+        CAPTURES["captures"] += n
+
+
+def capture_count() -> int:
+    with _CAPTURES_LOCK:
+        return CAPTURES["captures"]
 
 
 @dataclasses.dataclass
@@ -489,23 +508,6 @@ def _segment_bounds(T: int, eval_every: int, chunk: int):
     return sorted(stops)
 
 
-# ------------------------------------------------------ compiled drivers
-
-# the JAX package's keywords that the port does not take yet, and the
-# ROADMAP.md queue 1 item that brings each
-_UNPORTED = {
-    "guard_recompiles": "lint/",
-}
-
-
-def _refuse_unported(**kw) -> None:
-    for name, value in kw.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported to repro_torch yet (ROADMAP.md "
-                f"queue 1, {_UNPORTED[name]!r})")
-
-
 # ------------------------------------------------------ worker meshes
 #
 # Every rank calls a sharded driver with the same arguments. On a 1-axis
@@ -863,6 +865,7 @@ class _LevelGraphs:
             LAUNCHES.update(before)
             self.graphs[key] = (pieces, launches)
             self.capture_seconds[key] += time.perf_counter() - t0
+            count_captures()
 
     def replay(self, keys) -> None:
         """Replay the graphs of ``keys`` in order, each under
@@ -902,7 +905,8 @@ class ScanFn:
     flags are read once a segment. On a card each key gets one captured CUDA
     graph (``_LevelGraphs``), kept for the next run while the shapes (and
     the lane groups) fit; ``capture_seconds`` holds each key's warm-up and
-    capture time and ``captures`` counts the captures made. ``run_round``
+    capture time and ``captures`` counts the captures made (each also in
+    the process's ``CAPTURES``); ``drop_graphs`` frees them. ``run_round``
     runs one round through the same graphs (``Session.step``). After a run,
     ``corr_norms`` holds its rounds' correction norms ((T,) or (T, C), read
     once after the last segment; None in momentum mode). ``microbatch``
@@ -950,6 +954,11 @@ class ScanFn:
         narrow = self.gather or self.plan
         return None if narrow is None else functools.partial(narrow.shard,
                                                              dim=0)
+
+    def drop_graphs(self) -> None:
+        """Free the kept graphs and their buffers: the next run or round
+        on a card captures its levels anew."""
+        self._graphs = None
 
     @property
     def capture_seconds(self) -> Dict[Any, float]:

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -24,6 +25,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
+# the libraries this process built with nvcc (one a source): with the level
+# graphs' ``core.robust_train.CAPTURES``, the compiles that
+# ``lint.runtime.recompile_guard`` counts
+BUILDS = {"builds": 0}
+_BUILDS_LOCK = threading.Lock()
+
+
+def build_count() -> int:
+    with _BUILDS_LOCK:
+        return BUILDS["builds"]
 
 
 def find_nvcc() -> str:
@@ -78,6 +89,8 @@ def build(names: Sequence[str]) -> float:
             continue
         out.with_name(out.name + ".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        with _BUILDS_LOCK:
+            BUILDS["builds"] += 1
     if failed:
         raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0

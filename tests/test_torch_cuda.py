@@ -1266,6 +1266,99 @@ def test_served_stream_equals_run_on_card(cuda_device, attack):
     assert len(modes) == T and set(modes) == {2}, modes  # 2: "error"
 
 
+def _guarded_fig1(dev, **kw):
+    from repro_torch import Task, build_session, sgd
+    (params0, grad_fn, sampler, _), cfg = _fig1(dev)
+    task = Task(params0, grad_fn, lambda m: sampler, lambda p: 0.0)
+    return build_session(cfg, task, opt=sgd(0.1), switcher=_fig1_switcher(),
+                         **kw)
+
+
+def test_guarded_session_steady_state_on_card(cuda_device):
+    """T=24 of the Figure-1 setting on a guarded session: the first run
+    captures each level once, a second run under the guard captures
+    nothing (bitwise equal); a fresh guarded session's steps capture each
+    level at its first step and nothing after (bitwise the run)."""
+    from repro_torch.core import robust_train as rt
+    from repro_torch.lint import compile_count
+    T = 24
+    sess = _guarded_fig1(cuda_device, guard_recompiles=True)
+    c0 = rt.capture_count()  # the first run may build the kernels too
+    p1, logs, _ = sess.run(T)
+    levels = sorted({l.level for l in logs})
+    assert rt.capture_count() - c0 == len(levels) == sess.scan_fn.captures
+    c0 = compile_count()
+    p2, _, _ = sess.run(T)
+    assert compile_count() == c0
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    fresh = _guarded_fig1(cuda_device, guard_recompiles=True)
+    carry, sched, seen = fresh.init_carry(), fresh.schedule(T), set()
+    for t in range(T):
+        c0 = compile_count()
+        carry, _ = fresh.step(carry, fresh.round_inputs(sched, t))
+        level = int(sched.levels[t])
+        assert compile_count() - c0 == (level not in seen), (t, level)
+        seen.add(level)
+    for k in p1:
+        assert torch.equal(carry[0][k], p1[k]), k
+    assert fresh.scan_fn.captures == len(levels)
+
+
+def test_forced_recapture_raises_on_card(cuda_device):
+    """A warmed guarded session whose graphs are dropped: a guarded run
+    raises ``RecompileError`` naming its captures; a counting guard counts
+    them without raising; an exception in a guarded block is not masked."""
+    from repro_torch.lint import RecompileError, recompile_guard
+    T = 24
+    sess = _guarded_fig1(cuda_device, guard_recompiles=True)
+    p1, logs, _ = sess.run(T)
+    n = len({l.level for l in logs})
+    sess.scan_fn.drop_graphs()
+    with pytest.raises(RecompileError, match=f"{n} recompile"):
+        sess.run(T)
+    sess.scan_fn.drop_graphs()
+    sess.guard_recompiles = False
+    with recompile_guard("counted", action="count") as g:
+        p2, _, _ = sess.run(T)
+    assert g.count == n
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    sess.scan_fn.drop_graphs()
+    with pytest.raises(RuntimeError, match="original"):
+        with recompile_guard("raise-through") as g:
+            sess.run(T)
+            raise RuntimeError("original failure")
+    assert g.count == n
+
+
+def test_served_stream_under_the_env_guard_on_card(cuda_device, monkeypatch):
+    """T=24 served from 17 worker threads into a session built with
+    ``REPRO_RECOMPILE_GUARD=1``: no ``RecompileError``, each level captured
+    once, params bitwise ``Session.run``'s."""
+    from repro_torch import (AggregationServer, ServeConfig, SimulatedWorkers,
+                             worker_payloads)
+    from repro_torch.api.session import GUARD_ENV
+    from repro_torch.lint import compile_count
+    T = 24
+    p_run, logs, _ = _guarded_fig1(cuda_device).run(T)
+    monkeypatch.setenv(GUARD_ENV, "1")
+    sess = _guarded_fig1(cuda_device)
+    assert sess.guard_recompiles
+    c0 = compile_count()
+    server = AggregationServer(sess, T, ServeConfig(lookahead_rounds=4))
+    server.start()
+    workers = SimulatedWorkers(server, worker_payloads(sess, T),
+                               jitter_s=0.002).start()
+    assert workers.join(timeout=30.0) and not workers.failures
+    assert server.join(timeout=30.0), server.snapshot()
+    server.close()
+    assert server.error is None, server.error
+    assert compile_count() - c0 == len({l.level for l in logs})
+    for k in p_run:
+        assert torch.equal(server.params[k], p_run[k]), k
+
+
 def test_sweep_halving_survivors_on_card(cuda_device):
     """T=24 of the Figure-1 setting with adagrad_norm, rungs at 8 and 16:
     CWTM lanes under sign_flip, ipm, random and alie at two deltas, Krum

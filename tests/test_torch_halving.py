@@ -184,7 +184,14 @@ def test_halving_validation():
     with pytest.raises(ValueError, match="lanes"):
         ts.sweep_halving(spec, T, objective=_objective,
                          lane_mesh=Mesh(("workers",), (1,)))
-    assert "sweep_halving" not in t_rt._UNPORTED
+    # nothing of the JAX package's is refused now, and a guarded session's
+    # halving runs unguarded (it captures its shrunk batches anew)
+    assert not hasattr(t_rt, "_UNPORTED")
+    guarded = dataclasses.replace(spec, switchers=spec.switchers[:2])
+    ts.guard_recompiles = True
+    out = ts.sweep_halving(guarded, T, objective=_objective)
+    assert [o["rounds_run"] for o in out].count(T) == 1
+    assert not ts._steady_sigs
 
 
 def test_default_rung_and_prebuilt_scan_fn():

@@ -168,20 +168,20 @@ def test_session_errors_and_unported_keywords(monkeypatch):
     # microbatch=, the worker mesh= and the GSPMD path are ported
     # (tests/test_torch_zoo.py, tests/test_torch_mesh.py,
     # tests/test_torch_gspmd.py): param_specs= without a 2-axis mesh raises
-    # the JAX package's ValueError; guard_recompiles= is lint/'s
+    # the JAX package's ValueError; guard_recompiles= and its env var build
+    # a guarded session (tests/test_torch_lint.py)
     sess = t_session.Session(cfg, **base, m=M, param_specs={},
                              mesh=Mesh(("workers", "model"), (1, 1)))
     assert sess.scan_fn.worker_mesh == Mesh(("workers", "model"), (1, 1))
     with pytest.raises(ValueError, match="param_specs"):
         t_session.Session(cfg, **base, param_specs={})
-    with pytest.raises(NotImplementedError, match="lint/"):
-        t_session.Session(cfg, **base, guard_recompiles=True)
+    assert t_session.Session(cfg, **base, guard_recompiles=True).guard_recompiles
     with pytest.raises(ValueError, match="worker count"):
         t_session.Session(cfg, **base, mesh=Mesh(("workers",), (1,)))
     monkeypatch.setenv(t_session.GUARD_ENV, "1")
-    with pytest.raises(NotImplementedError, match="lint/"):
-        t_session.Session(cfg, **base)
+    assert t_session.Session(cfg, **base).guard_recompiles
     monkeypatch.delenv(t_session.GUARD_ENV)
+    assert not t_session.Session(cfg, **base).guard_recompiles
     lane_fn = t_rt.make_dynabro_scan_fn(task.grad_fn, cfg, t_optim.sgd(0.1),
                                         lane_aggregators=("cwtm",))
     with pytest.raises(ValueError, match="run_dynabro_scan_sweep"):
